@@ -1,0 +1,335 @@
+#!/usr/bin/env python3
+"""Runs the PyTorch/CUDA port (covid19uk_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py             # on a machine with a card
+    python3 chip_smoke.py --rehearse  # tiny CPU run of phase 3, exits 3
+
+Phases, one short line each:
+  0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
+  1. builds the fused event-sweep kernel with nvcc (ptxas line printed);
+  2. kernel against its plain PyTorch version at full width (M=380,
+     T=120, 64 chains, U=5): events and state identical, commute within
+     rtol 1e-5 (atol 1e-6), logp within 1e-5 relative; times both;
+  3. the sampling transition: synthetic full-UK model (float32), 64
+     overdispersed chains, 2 untimed + 10 timed transitions of
+     make_mcmc_step (fused sweep, no pair moves), invariants checked and
+     the kernel's launches counted.
+Then the kernels' JSON line and, last, the result line.  Any failure
+exits non-zero, as does a run without a CUDA device.
+"""
+
+import faulthandler
+import json
+import os
+import subprocess
+import sys
+import time
+
+M, T, C = 380, 120, 64  # full-UK scale (bench.py), 64 chains
+TINY = dict(M=12, T=20, C=2)  # --rehearse
+N_UNTIMED, N_TIMED = 2, 10
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+# Counted float32 operations per day-cell of a column delta (four binomial
+# log-pmfs with their Stirling terms) and per cell of the rate-only plane
+# delta (two rates, two log(1 - exp(-r)), the difference).
+COL_OPS, PLANE_OPS = 200, 60
+APPS = ("move S->E", "move E->I", "occult S->E", "occult E->I")
+
+
+def say(msg):
+    print(msg, flush=True)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def build_chains(torch, device, M, T, C, seed=0):
+    """bench.py's start: synthetic model, chains with independently
+    simulated events and jittered scalar parameters."""
+    from covid19uk_tpu_torch.inference.gibbs import ChainState
+    from covid19uk_tpu_torch.models.spec import (
+        Parameters, pack_parameters, unconstrain_parameters)
+    from covid19uk_tpu_torch.utils.synthetic import (
+        build_synthetic_model, initial_parameters)
+
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    model = build_synthetic_model(M, T, torch.float32, device=device)
+    params = initial_parameters(model)
+    batched = Parameters(*[p.expand((C,) + p.shape) for p in params])
+    events = model.sample_seir(gen, batched)
+    u = unconstrain_parameters(pack_parameters(params)).expand(C, -1)
+    jitter = 0.05 * torch.randn((C, 6), generator=gen, device=device)
+    u = torch.cat([u[:, :6] + jitter, u[:, 6:]], dim=1)
+    return model, ChainState(u=u, events=events), gen
+
+
+def event_config(T):
+    from covid19uk_tpu_torch.inference.gibbs import EventKernelConfig
+
+    return EventKernelConfig(
+        dmax=84, mmax=2, nmax=25, occult_nmax=15, num_event_time_updates=5,
+        t_range=(max(0, T - 21), T), num_pair_updates=0,
+        fused_sweep="always",
+    )
+
+
+def sweep_inputs(torch, model, state, gen):
+    """The fused sweep's inputs as make_mcmc_step forms them."""
+    from covid19uk_tpu_torch.inference.gibbs import (
+        resolve_event_config, sweep_config)
+    from covid19uk_tpu_torch.inference.likelihood import make_context
+    from covid19uk_tpu_torch.models import seir
+    from covid19uk_tpu_torch.models.spec import (
+        constrain_log_det_jacobian, constrain_parameters, unpack_parameters)
+    from covid19uk_tpu_torch.ops import fused_sweep as fs
+
+    Mm, Tt = model.data.num_locations, model.num_steps
+    Cc = state.u.shape[0]
+    scfg = sweep_config(resolve_event_config(event_config(Tt), Mm))
+    full_state = seir.compute_state(model.initial_state, state.events)
+    commute = model.commute_pressure(full_state[..., 2])
+    params = unpack_parameters(constrain_parameters(state.u), Tt, Mm)
+    logp = (model.log_prior(params)
+            + model.reduced_loglik_fn(state.events, full_state,
+                                      commute)(params)
+            + constrain_log_det_jacobian(state.u))
+    ctx = make_context(model, params)
+    decays = torch.full((Cc, 5), 0.9, device=state.u.device)
+    tbl, ttbl = fs.draw_tables(gen, Cc, Mm, Tt, scfg, state.u.device)
+    args = (tbl, ttbl, state.events, full_state, commute, logp, ctx.exp_eta,
+            ctx.psi_w, ctx.rate_ir_t, ctx.N, ctx.Cstar, decays)
+    return args, scfg
+
+
+def outputs_agree(torch, plain, kern):
+    """(ok, per-chain bad mask, max abs error, logp relative error)."""
+    ev_p, st_p, cm_p, lp_p, tr_p = plain
+    ev_k, st_k, cm_k, lp_k, tr_k = kern
+    bad = (ev_p != ev_k).flatten(1).any(1) | (st_p != st_k).flatten(1).any(1)
+    cm_tol = 1e-5 * cm_p.abs() + 1e-6
+    bad |= ((cm_p - cm_k).abs() > cm_tol).flatten(1).any(1)
+    lp_rel = (lp_p - lp_k).abs() / lp_p.abs().clamp(min=1.0)
+    bad |= lp_rel > 1e-5
+    cols = [0] + list(range(2, tr_p.shape[2]))
+    bad |= (tr_p[:, :, cols] != tr_k[:, :, cols]).flatten(1).any(1)
+    err = max(float((a - b).abs().max()) for a, b in zip(plain, kern))
+    return not bool(bad.any()), bad, err, float(lp_rel.max())
+
+
+def first_difference(torch, fs, args, scfg):
+    """Replays the sweep one multiscan at a time and reports the first
+    application where a chain's kernel and plain results part, with the
+    plain version's margin log(alpha) - log(u) there."""
+    tbl, ttbl, ev, st, cm, lp, *ctx = args
+    for u in range(scfg.num_updates):
+        one = scfg._replace(num_updates=1)
+        rec = []
+        sub = (tbl[:, u:u + 1], ttbl[:, u:u + 1], ev, st, cm, lp, *ctx)
+        plain = fs.fused_sweep_reference(*sub, one, record=rec)
+        kern = fs.fused_sweep(*sub, one)
+        ok, bad, _, _ = outputs_agree(torch, plain, kern)
+        if not ok:
+            c = int(bad.nonzero()[0, 0])
+            rows = (plain[4][c] != kern[4][c]).any(1).nonzero()
+            a = int(rows[0, 0]) if len(rows) else 3
+            margin = float(rec[a]["log_alpha"][c] - rec[a]["log_u"][c])
+            return (f"chain {c}: first differing application is multiscan "
+                    f"{u}, {APPS[a]}; plain log_alpha - log_u = {margin!r}")
+        ev, st, cm, lp = plain[:4]
+    return "no single multiscan differs"
+
+
+def cuda_ms(torch, fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def phase_kernel(torch, model, state, gen):
+    """Phase 2: the kernel against its plain version, both on the card."""
+    from covid19uk_tpu_torch.ops import fused_sweep as fs
+
+    t0 = time.perf_counter()
+    args, scfg = sweep_inputs(torch, model, state, gen)
+    rec = []
+    plain = fs.fused_sweep_reference(*args, scfg, record=rec)
+    kern = fs.fused_sweep(*args, scfg)
+    torch.cuda.synchronize()
+    ok, bad, err, lp_rel = outputs_agree(torch, plain, kern)
+    if not ok:
+        say(f"phase 2 FAILED: {int(bad.sum())} of {bad.numel()} chains "
+            f"differ; {first_difference(torch, fs, args, scfg)}")
+        raise SystemExit(1)
+    ms = cuda_ms(torch, lambda: fs.fused_sweep(*args, scfg), 20)
+    plain_ms = cuda_ms(torch, lambda: fs.fused_sweep_reference(*args, scfg),
+                       3)
+    # bound: each input read once, each output written once; operations
+    # counted from this run's windows (record)
+    n_bytes = 4 * (sum(a.numel() for a in args) + sum(o.numel()
+                                                      for o in kern))
+    cells = sum(int(r["rows"].sum()) for r in rec) * model.data.num_locations
+    cols = scfg.num_updates * (2 * scfg.mmax + 2) * model.num_steps
+    ops = cells * PLANE_OPS + cols * state.u.shape[0] * COL_OPS
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    say(f"phase 2 kernel vs plain: {state.u.shape[0]} chains identical "
+        f"(events, state, trace), max abs err {err!r}, logp rel err "
+        f"{lp_rel!r}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return dict(ms=ms, plain_ms=plain_ms, err=err,
+                bound_ms=max(bytes_ms, ops_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def grad_ms(torch, model, state):
+    """One value-and-gradient of the HMC density for all chains (a
+    transition runs 17 of them), CUDA events over 10 repetitions."""
+    from covid19uk_tpu_torch.inference.hmc import value_and_grad
+    from covid19uk_tpu_torch.models import seir
+    from covid19uk_tpu_torch.models.spec import (
+        constrain_log_det_jacobian, constrain_parameters, unpack_parameters)
+
+    Mm, Tt = model.data.num_locations, model.num_steps
+    full_state = seir.compute_state(model.initial_state, state.events)
+    commute = model.commute_pressure(full_state[..., 2])
+    loglik = model.reduced_loglik_fn(state.events, full_state, commute)
+
+    def logdensity(u):
+        p = unpack_parameters(constrain_parameters(u), Tt, Mm)
+        return model.log_prior(p) + loglik(p) + constrain_log_det_jacobian(u)
+
+    return cuda_ms(torch, lambda: value_and_grad(logdensity, state.u), 10)
+
+
+def phase_slice(torch, model, state, gen, timed, card=""):
+    """Phase 3: the sampling transition; returns (ms/transition, launches)."""
+    from covid19uk_tpu_torch.inference.gibbs import HMCTunables, make_mcmc_step
+    from covid19uk_tpu_torch.models import seir
+    from covid19uk_tpu_torch.ops import fused_sweep as fs
+
+    dev = state.u.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    t0 = time.perf_counter()
+    step = make_mcmc_step(model, 16, event_config(model.num_steps))
+    tune = HMCTunables(
+        step_size=torch.tensor(0.005, device=dev),
+        inv_mass_diag=torch.ones(state.u.shape[1], device=dev),
+    )
+    for _ in range(N_UNTIMED):
+        state, _ = step(state, tune, gen)
+    sync()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    fs.fused_sweep.launches = 0
+    traces = []
+    t1 = time.perf_counter()
+    for _ in range(timed):
+        state, tr = step(state, tune, gen)
+        traces.append(tr)
+    sync()
+    wall = time.perf_counter() - t1
+    launches = fs.fused_sweep.launches
+    lp = torch.stack([tr.occult_ei.target_log_prob for tr in traces])
+    ev = state.events
+    st = seir.compute_state(model.initial_state, ev)
+    if not bool(torch.isfinite(lp).all()):
+        raise AssertionError("non-finite logp")
+    if not (bool((ev >= 0).all()) and bool((ev == torch.round(ev)).all())):
+        raise AssertionError("events are not non-negative integers")
+    if not bool((st >= -1e-3).all()):
+        raise AssertionError("negative state")
+    if dev.type == "cuda" and launches != timed:
+        raise AssertionError(f"fused_sweep launched {launches} times in "
+                             f"{timed} transitions")
+    acc = {f: float(torch.stack([getattr(tr, f).is_accepted.float()
+                                 for tr in traces]).mean())
+           for f in ("move_se", "move_ei", "occult_se", "occult_ei")}
+    hmc_acc = float(torch.stack([tr.hmc.is_accepted.float()
+                                 for tr in traces]).mean())
+    ms = wall / timed * 1e3
+    peak = (torch.cuda.max_memory_allocated() / 2**20
+            if dev.type == "cuda" else float("nan"))
+    say(f"phase 3 slice on {card or 'the CPU'}: {timed} timed transitions, "
+        f"{ms:.2f} ms/transition,"
+        f" fused_sweep launches {launches}, HMC acc {hmc_acc:.3f}, sweep acc"
+        f" {json.dumps(acc)}, logp mean {float(lp[-1].mean())!r}, peak "
+        f"{peak:.0f} MiB ({time.perf_counter() - t0:.1f} s)")
+    return ms, launches
+
+
+def main(argv):
+    rehearse = "--rehearse" in argv
+    faulthandler.dump_traceback_later(360, exit=True)
+    t0 = time.perf_counter()
+    import torch
+
+    if not rehearse and not torch.cuda.is_available():
+        print("no CUDA device: chip_smoke.py needs an NVIDIA card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from covid19uk_tpu_torch.ops import _build
+
+    if rehearse:
+        say("phase 0 rehearsal on the CPU at a tiny size (phases 1-2 "
+            "skipped, no result line)")
+        model, state, gen = build_chains(torch, "cpu", **TINY)
+        phase_slice(torch, model, state, gen, timed=2)
+        return 3
+
+    card = card_line()
+    say(f"phase 0 card: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda} ({time.perf_counter() - t0:.1f} s)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    built = _build.fused_sweep_library()
+    ptxas = " | ".join(
+        line.split(":", 1)[-1].strip() for line in built.log.splitlines()
+        if "Used" in line or "spill" in line
+    )
+    say(f"phase 1 nvcc build {built.seconds:.1f} s: {ptxas}")
+
+    model, state, gen = build_chains(torch, "cuda", M, T, C)
+    torch.cuda.synchronize()
+    say(f"model and {C} chains on the card ({time.perf_counter() - t0:.1f} s)")
+    k1 = phase_kernel(torch, model, state, gen)
+    ms, launches = phase_slice(torch, model, state, gen, N_TIMED, card)
+    say(f"breakdown: HMC density value+grad {grad_ms(torch, model, state):.3f}"
+        f" ms (x17 per transition), fused sweep {k1['ms']:.3f} ms")
+
+    kernels = [dict(
+        name="fused_sweep", route="cuda",
+        source="covid19uk_tpu_torch/ops/csrc/fused_sweep.cu",
+        replaces="covid19uk_tpu/ops/pallas/fused_sweep.py:751",
+        launches=launches, max_abs_err=k1["err"], ms=k1["ms"],
+        plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+        bound_by=k1["bound_by"], library_ms=None,
+    )]
+    say(f"{ms:.3f} ms per transition on {card}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
+    say(card)
+    say(json.dumps({"kernels": kernels}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

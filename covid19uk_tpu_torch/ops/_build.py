@@ -1,0 +1,104 @@
+"""Builds the CUDA kernels with nvcc and binds them with ctypes.
+
+Each ``csrc/*.cu`` file has a plain C interface and includes no PyTorch
+header, so a build takes seconds.  The shared library goes into
+``covid19uk_tpu_torch/_build/`` (listed in ``.gitignore``) under a name
+that carries a hash of the source and the flags, so an edited source is
+rebuilt and an unchanged one is loaded as it is.  A failed build raises
+with nvcc's output.
+"""
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import NamedTuple
+
+_PKG = Path(__file__).resolve().parents[1]
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = _PKG / "_build"
+
+# -fmad=false: no contraction of a*b+c into one rounding, so the kernel
+# rounds each float32 operation as the plain PyTorch version does and the
+# two make the same accept/reject decisions.
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-fmad=false",
+]
+
+
+class Built(NamedTuple):
+    lib: ctypes.CDLL
+    log: str  # nvcc's output (ptxas: registers, shared memory, spills)
+    seconds: float  # build time, 0.0 when the library was already built
+
+
+def _nvcc():
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (nvcc on PATH or under /usr/local/cuda)")
+
+
+def build(name):
+    """Compiles ``csrc/<name>.cu`` into a shared library and loads it."""
+    src = _CSRC / f"{name}.cu"
+    text = src.read_bytes()
+    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    tag = digest.hexdigest()[:16]
+    out = BUILD_DIR / f"lib{name}_{tag}.so"
+    log_path = out.with_suffix(".log")
+    seconds = 0.0
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".tmp{os.getpid()}.so")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(
+                f"nvcc failed ({proc.returncode}) on {src}:\n"
+                f"{' '.join(cmd)}\n{log}"
+            )
+        log_path.write_text(log)
+        os.replace(tmp, out)
+    log = log_path.read_text() if log_path.exists() else ""
+    return Built(ctypes.CDLL(str(out)), log, seconds)
+
+
+def bind_fused_sweep(lib):
+    """Declares the C interface of ``csrc/fused_sweep.cu`` on ``lib``."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn = lib.fused_sweep_launch
+    # 12 inputs, 5 outputs, 12 ints, guided flag, 2 floats, the stream
+    fn.argtypes = [p] * 17 + [i] * 12 + [i, f, f, p]
+    fn.restype = ctypes.c_int
+    err = lib.fused_sweep_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+@functools.cache
+def fused_sweep_library():
+    """The fused event-sweep kernel, built at first use."""
+    built = build("fused_sweep")
+    bind_fused_sweep(built.lib)
+    return built
+
+
+def error_string(code):
+    """CUDA's name for an error code returned by a launch."""
+    msg = fused_sweep_library().lib.fused_sweep_error_string(code)
+    return msg.decode() if msg else "unknown"

@@ -1,0 +1,64 @@
+"""The port's CUDA kernels against their plain PyTorch versions on a card.
+
+Imports neither JAX nor the JAX package, so that it runs on a machine
+with a card and no JAX:
+
+    python3 -m pytest --noconftest -p no:cacheprovider -m gpu \\
+        tests/test_torch_cuda.py
+
+Without a card the test skips (the CUDA kernel has no CPU mode).
+"""
+
+import pytest
+import torch
+
+from covid19uk_tpu_torch.inference.likelihood import make_context
+from covid19uk_tpu_torch.models import seir
+from covid19uk_tpu_torch.models.spec import Parameters
+from covid19uk_tpu_torch.ops import fused_sweep as fs
+from covid19uk_tpu_torch.utils import synthetic
+
+
+def _sweep_args(C, M, T, cfg, gen):
+    model = synthetic.build_synthetic_model(M, T, torch.float32,
+                                            device="cuda")
+    p = synthetic.initial_parameters(model)
+    params = Parameters(*[a.expand((C,) + a.shape) for a in p])
+    events = model.sample_seir(gen, params)
+    state = seir.compute_state(model.initial_state, events)
+    commute = model.commute_pressure(state[..., 2])
+    ctx = make_context(model, params)
+    logp = model.log_prob(params, events)
+    decays = torch.tensor([0.8, 0.85, 0.9, 0.9, 0.9],
+                          device="cuda").expand(C, 5)
+    tbl, ttbl = fs.draw_tables(gen, C, M, T, cfg, "cuda")
+    return (tbl, ttbl, events, state, commute, logp, ctx.exp_eta, ctx.psi_w,
+            ctx.rate_ir_t, ctx.N, ctx.Cstar, decays)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("guided", [False, True])
+def test_cuda_fused_sweep_matches_plain_version(guided):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    C, M, T = 6, 40, 30
+    cfg = fs.SweepConfig(mmax=2, nmax=10, dmax=8, occult_nmax=5,
+                         t_range=(T - 10, T), num_updates=3,
+                         occult_guided=guided)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = _sweep_args(C, M, T, cfg, gen)
+    before = fs.fused_sweep.launches
+    got = fs.fused_sweep(*args, cfg)
+    torch.cuda.synchronize()
+    assert fs.fused_sweep.launches == before + 1
+    want = fs.fused_sweep_reference(*args, cfg)
+    ev, st, cm, lp, tr = [a.cpu() for a in got]
+    ev_w, st_w, cm_w, lp_w, tr_w = [a.cpu() for a in want]
+    assert torch.equal(ev, ev_w) and torch.equal(st, st_w)
+    # commute: float32 rank-1 updates, equal up to rounding
+    torch.testing.assert_close(cm, cm_w, rtol=1e-5, atol=1e-6)
+    # logp: float32 sums in another order
+    torch.testing.assert_close(lp, lp_w, rtol=1e-5, atol=0.0)
+    cols = [0] + list(range(2, tr.shape[-1]))
+    assert torch.equal(tr[..., cols], tr_w[..., cols])
+    assert int(tr[:, :, 0].sum()) > 0, "nothing accepted: vacuous"

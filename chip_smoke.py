@@ -2,18 +2,29 @@
 """Runs the PyTorch/CUDA port (covid19uk_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # on a machine with a card
-    python3 chip_smoke.py --rehearse  # tiny CPU run of phase 3, exits 3
+    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3 and 5, exits 3
 
 Phases, one short line each:
   0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
-  1. builds the fused event-sweep kernel with nvcc (ptxas line printed);
-  2. kernel against its plain PyTorch version at full width (M=380,
-     T=120, 64 chains, U=5): events and state identical, commute within
-     rtol 1e-5 (atol 1e-6), logp within 1e-5 relative; times both;
+  1. builds both CUDA kernels with nvcc, one process each, started
+     together (ptxas lines printed);
+  2. K1, the fused event sweep, against its plain PyTorch version at full
+     UK width (M=380, T=120, 64 chains, U=5): events and state identical,
+     commute within rtol 1e-5 (atol 1e-6), logp within 1e-5 relative;
+     times both;
   3. the sampling transition: synthetic full-UK model (float32), 64
      overdispersed chains, 2 untimed + 10 timed transitions of
      make_mcmc_step (fused sweep, no pair moves), invariants checked and
-     the kernel's launches counted.
+     K1's launches counted;
+  4. K2, the block-sparse product, against its plain version at the MSOA
+     shapes (x [7000, 120] and the windowed batch [4, 7000, 85]): error
+     within 1e-5 of |A| @ |x| elementwise; kernel, plain version and the
+     dense torch.matmul timed by CUDA events;
+  5. the MSOA slice: synthetic M=7000, T=120 model (radius 0.05, float32)
+     with the block-sparse commute and the banded CAR prior, one chain,
+     2 untimed + 5 timed transitions of the unfused sweep with threaded
+     commute and pair moves; invariants, one K2 launch per transition, and
+     the threaded commute against a fresh product checked.
 Then the kernels' JSON line and, last, the result line.  Any failure
 exits non-zero, as does a run without a CUDA device.
 """
@@ -28,6 +39,11 @@ import time
 M, T, C = 380, 120, 64  # full-UK scale (bench.py), 64 chains
 TINY = dict(M=12, T=20, C=2)  # --rehearse
 N_UNTIMED, N_TIMED = 2, 10
+# MSOA scale (tools/bench_msoa.py): one chain, gravity radius 0.05
+MSOA_M, MSOA_T, MSOA_RADIUS = 7000, 120, 0.05
+MSOA_TIMED = 5
+WINDOWED_BATCH = (4, 85)  # the windowed evaluator's [L, M, dmax + 1] shape
+K2_REPS = 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 # Counted float32 operations per day-cell of a column delta (four binomial
@@ -216,35 +232,47 @@ def grad_ms(torch, model, state):
     return cuda_ms(torch, lambda: value_and_grad(logdensity, state.u), 10)
 
 
-def phase_slice(torch, model, state, gen, timed, card=""):
-    """Phase 3: the sampling transition; returns (ms/transition, launches)."""
-    from covid19uk_tpu_torch.inference.gibbs import HMCTunables, make_mcmc_step
-    from covid19uk_tpu_torch.models import seir
+def reset_launches():
+    from covid19uk_tpu_torch.ops import block_sparse as bs
     from covid19uk_tpu_torch.ops import fused_sweep as fs
+
+    fs.fused_sweep.launches = 0
+    bs.bsr_matmul.launches = 0
+
+
+def read_launches():
+    from covid19uk_tpu_torch.ops import block_sparse as bs
+    from covid19uk_tpu_torch.ops import fused_sweep as fs
+
+    return {"fused_sweep": fs.fused_sweep.launches,
+            "bsr_matmul": bs.bsr_matmul.launches}
+
+
+def run_transitions(torch, model, state, gen, step, tune, timed):
+    """2 untimed and ``timed`` timed transitions; the kernels' launch
+    counts are set to 0 just before the timed ones and read just after.
+    Checks the invariants: finite logp, non-negative integer events,
+    non-negative state.  Returns (state, traces, ms/transition,
+    launches, peak MiB)."""
+    from covid19uk_tpu_torch.models import seir
 
     dev = state.u.device
     sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
-    t0 = time.perf_counter()
-    step = make_mcmc_step(model, 16, event_config(model.num_steps))
-    tune = HMCTunables(
-        step_size=torch.tensor(0.005, device=dev),
-        inv_mass_diag=torch.ones(state.u.shape[1], device=dev),
-    )
     for _ in range(N_UNTIMED):
         state, _ = step(state, tune, gen)
     sync()
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats()
-    fs.fused_sweep.launches = 0
     traces = []
+    reset_launches()
     t1 = time.perf_counter()
     for _ in range(timed):
         state, tr = step(state, tune, gen)
         traces.append(tr)
     sync()
     wall = time.perf_counter() - t1
-    launches = fs.fused_sweep.launches
-    lp = torch.stack([tr.occult_ei.target_log_prob for tr in traces])
+    launches = read_launches()
+    lp = torch.stack([tr.pair.target_log_prob for tr in traces])
     ev = state.events
     st = seir.compute_state(model.initial_state, ev)
     if not bool(torch.isfinite(lp).all()):
@@ -253,23 +281,236 @@ def phase_slice(torch, model, state, gen, timed, card=""):
         raise AssertionError("events are not non-negative integers")
     if not bool((st >= -1e-3).all()):
         raise AssertionError("negative state")
-    if dev.type == "cuda" and launches != timed:
-        raise AssertionError(f"fused_sweep launched {launches} times in "
-                             f"{timed} transitions")
-    acc = {f: float(torch.stack([getattr(tr, f).is_accepted.float()
-                                 for tr in traces]).mean())
-           for f in ("move_se", "move_ei", "occult_se", "occult_ei")}
-    hmc_acc = float(torch.stack([tr.hmc.is_accepted.float()
-                                 for tr in traces]).mean())
-    ms = wall / timed * 1e3
     peak = (torch.cuda.max_memory_allocated() / 2**20
             if dev.type == "cuda" else float("nan"))
+    return state, traces, wall / timed * 1e3, launches, peak
+
+
+def acceptance(torch, traces, fields):
+    return {f: round(float(torch.stack([getattr(tr, f).is_accepted.float()
+                                        for tr in traces]).mean()), 4)
+            for f in fields}
+
+
+def phase_slice(torch, model, state, gen, timed, card=""):
+    """Phase 3: the sampling transition; returns (ms/transition, launches
+    of K1)."""
+    from covid19uk_tpu_torch.inference.gibbs import HMCTunables, make_mcmc_step
+
+    dev = state.u.device
+    t0 = time.perf_counter()
+    step = make_mcmc_step(model, 16, event_config(model.num_steps))
+    tune = HMCTunables(
+        step_size=torch.tensor(0.005, device=dev),
+        inv_mass_diag=torch.ones(state.u.shape[1], device=dev),
+    )
+    state, traces, ms, launches, peak = run_transitions(
+        torch, model, state, gen, step, tune, timed)
+    if dev.type == "cuda" and launches["fused_sweep"] != timed:
+        raise AssertionError(f"fused_sweep launched "
+                             f"{launches['fused_sweep']} times in {timed} "
+                             f"transitions")
+    acc = acceptance(torch, traces, ("hmc", "move_se", "move_ei",
+                                     "occult_se", "occult_ei"))
+    lp = traces[-1].pair.target_log_prob
     say(f"phase 3 slice on {card or 'the CPU'}: {timed} timed transitions, "
-        f"{ms:.2f} ms/transition,"
-        f" fused_sweep launches {launches}, HMC acc {hmc_acc:.3f}, sweep acc"
-        f" {json.dumps(acc)}, logp mean {float(lp[-1].mean())!r}, peak "
-        f"{peak:.0f} MiB ({time.perf_counter() - t0:.1f} s)")
-    return ms, launches
+        f"{ms:.2f} ms/transition, launches {json.dumps(launches)}, "
+        f"acceptance {json.dumps(acc)}, logp mean {float(lp.mean())!r}, "
+        f"peak {peak:.0f} MiB ({time.perf_counter() - t0:.1f} s)")
+    return ms, launches["fused_sweep"]
+
+
+def msoa_config(T):
+    """tools/bench_msoa.py's event configuration (unfused sweep; threaded
+    commute and guided occults resolve on at M >= 1024)."""
+    from covid19uk_tpu_torch.inference.gibbs import EventKernelConfig
+
+    return EventKernelConfig(
+        dmax=84, mmax=2, nmax=25, occult_nmax=15, num_event_time_updates=5,
+        t_range=(T - 21, T), num_pair_updates=1,
+    )
+
+
+def build_msoa(torch, device, M, T, seed=0):
+    """The MSOA model (block-sparse commute, banded CAR prior) and one
+    chain with forward-simulated events."""
+    from covid19uk_tpu_torch.inference.gibbs import ChainState
+    from covid19uk_tpu_torch.utils.synthetic import (
+        build_synthetic_model, initial_chain_state)
+
+    model = build_synthetic_model(M, T, torch.float32, sparse="auto",
+                                  radius_frac=MSOA_RADIUS, keep_C=False,
+                                  device=device)
+    d = model.data
+    if d.Cstar_bsr is None or d.car_band is None:
+        raise AssertionError("the MSOA model built no block-sparse commute "
+                             "or no banded CAR prior")
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    st = initial_chain_state(model, gen)
+    return model, ChainState(u=st.u[None], events=st.events[None]), gen
+
+
+def k2_error(torch, values, col_idx, xp, y, bs):
+    """max |y - plain| and max |y - plain| / (|A| @ |x|): the kernel is
+    held elementwise relative to the sum of absolute terms (rows of Cstar
+    sum to about zero, so A x itself cancels)."""
+    plain = bs.bsr_matmul_reference(values, col_idx, xp)
+    scale = bs.bsr_matmul_reference(values.abs(), col_idx, xp.abs())
+    diff = (y - plain).abs()
+    return float(diff.max()), float((diff / (scale + 1e-30)).max())
+
+
+def phase_k2(torch, model, gen):
+    """Phase 4: K2 against its plain version at the MSOA shapes; times the
+    kernel, the plain version and the dense torch.matmul by CUDA events."""
+    from covid19uk_tpu_torch.ops import block_sparse as bs
+
+    t0 = time.perf_counter()
+    op = model.data.Cstar_bsr
+    values, col_idx = op.values, op.col_idx
+    R, K, B, _ = values.shape
+    Mm, Tt = model.data.num_locations, model.num_steps
+    shapes = [(1, Mm, Tt), (WINDOWED_BATCH[0], Mm, WINDOWED_BATCH[1])]
+    out = {}
+    for S, n, t in shapes:
+        tp = -(-t // B) * B
+        xp = torch.zeros((S, R * B, tp), device="cuda")
+        xp[:, :n, :t] = torch.randn((S, n, t), generator=gen, device="cuda")
+        y = bs._launch(values, col_idx, xp)
+        torch.cuda.synchronize()
+        err, rel = k2_error(torch, values, col_idx, xp, y, bs)
+        if not rel <= 1e-5:
+            say(f"phase 4 FAILED at x [{S}, {n}, {t}]: error {rel!r} of "
+                f"|A|@|x| (max abs {err!r})")
+            raise SystemExit(1)
+        ms = cuda_ms(torch, lambda: bs._launch(values, col_idx, xp), K2_REPS)
+        plain_ms = cuda_ms(
+            torch, lambda: bs.bsr_matmul_reference(values, col_idx, xp),
+            K2_REPS)
+        out[(S, t)] = dict(err=err, rel=rel, ms=ms, plain_ms=plain_ms, xp=xp)
+    # the library yardstick: the dense product of the same function
+    cstar = model.data.Cstar
+    x = out[(1, Tt)]["xp"][0, :Mm, :Tt][op.inv_perm]
+    library_ms = cuda_ms(torch, lambda: torch.matmul(cstar, x), K2_REPS)
+    # bound of the main path's call: the populated blocks' operations and
+    # bytes (padded slots and padded columns need no work), x read and y
+    # written once, col_idx read once
+    populated = int((values != 0).flatten(2).any(2).sum())
+    ops = 2.0 * populated * B * B * Tt
+    n_bytes = 4 * (populated * B * B + 2 * Mm * Tt + R * K)
+    ops_ms = ops / F32_OPS_PER_S * 1e3
+    bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    main = out[(1, Tt)]
+    batch = out[(WINDOWED_BATCH[0], WINDOWED_BATCH[1])]
+    say(f"phase 4 K2 vs plain (R={R}, K={K}, {populated} populated blocks of"
+        f" {R * K}): x [{Mm}, {Tt}] error {main['rel']!r} of |A|@|x| (max "
+        f"abs {main['err']!r}), kernel {main['ms']:.4f} ms, plain "
+        f"{main['plain_ms']:.4f} ms, dense torch.matmul {library_ms:.4f} ms,"
+        f" bound {max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f},"
+        f" bytes {bytes_ms:.4f}); x {list(shapes[1])} error {batch['rel']!r}"
+        f", kernel {batch['ms']:.4f} ms, plain {batch['plain_ms']:.4f} ms "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return dict(err=max(main["err"], batch["err"]), ms=main["ms"],
+                plain_ms=main["plain_ms"], library_ms=library_ms,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+
+
+def check_threaded_sweep(torch, model, state, tune, gen):
+    """One more unfused sweep on the final state: the threaded commute
+    against a fresh block-sparse product (within 1e-4 of |Cstar| @ |I/N|:
+    the rank-1 updates drift), the threaded state against the events'
+    cumsum, the threaded logp against a full recomputation; returns the
+    sweep's wall time in ms."""
+    from covid19uk_tpu_torch.inference.gibbs import (
+        event_sweep, resolve_event_config)
+    from covid19uk_tpu_torch.inference.likelihood import make_context
+    from covid19uk_tpu_torch.models import seir
+    from covid19uk_tpu_torch.models.spec import (
+        constrain_parameters, unpack_parameters)
+    from covid19uk_tpu_torch.ops.block_sparse import BlockSparse
+
+    Mm, Tt = model.data.num_locations, model.num_steps
+    cfg = resolve_event_config(msoa_config(Tt), Mm)
+    params = unpack_parameters(constrain_parameters(state.u), Tt, Mm)
+    st = seir.compute_state(model.initial_state, state.events)
+    cm = model.commute_pressure(st[..., 2])
+    lp = model.joint_log_prob_unconstrained(state.u, state.events)
+    ctx = make_context(model, params)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = event_sweep(model, cfg, ctx, state.events, st, cm, lp, tune, gen)
+    torch.cuda.synchronize()
+    sweep_ms = (time.perf_counter() - t0) * 1e3
+    op = model.data.Cstar_bsr
+    x = res.state[..., 2] / model.data.N[:, None]
+    fresh = op.matmul(x)
+    scale = BlockSparse(op.values.abs(), op.col_idx, op.n, op.perm,
+                        op.inv_perm).matmul(x.abs())
+    drift = float(((res.commute - fresh).abs() / (scale + 1e-30)).max())
+    st_err = float((res.state - seir.compute_state(
+        model.initial_state, res.events)).abs().max())
+    full = model.joint_log_prob_unconstrained(state.u, res.events)
+    lp_rel = float(((res.logp - full).abs() / full.abs()).max())
+    say(f"threaded sweep check: commute drift {drift!r} of |Cstar|@|I/N|, "
+        f"state max abs err {st_err!r}, logp rel err {lp_rel!r} "
+        f"(threaded {float(res.logp[0])!r}, full {float(full[0])!r})")
+    if not (drift <= 1e-4 and st_err <= 1e-3 and lp_rel <= 1e-3):
+        raise AssertionError("the threaded sweep drifted from its state")
+    return sweep_ms
+
+
+def phase_msoa(torch, model, state, gen, timed, card=""):
+    """Phase 5: the MSOA transition; returns (ms/transition, K2
+    launches, breakdown line)."""
+    from covid19uk_tpu_torch.inference.gibbs import HMCTunables, make_mcmc_step
+
+    dev = state.u.device
+    t0 = time.perf_counter()
+    step = make_mcmc_step(model, 16, msoa_config(model.num_steps))
+    tune = HMCTunables(
+        step_size=torch.tensor(0.01, device=dev),
+        inv_mass_diag=torch.ones(state.u.shape[1], device=dev),
+    )
+    state, traces, ms, launches, peak = run_transitions(
+        torch, model, state, gen, step, tune, timed)
+    if dev.type == "cuda" and launches["bsr_matmul"] != timed:
+        raise AssertionError(f"bsr_matmul launched "
+                             f"{launches['bsr_matmul']} times in {timed} "
+                             f"transitions")
+    acc = acceptance(torch, traces, ("hmc", "move_se", "move_ei",
+                                     "occult_se", "occult_ei", "pair"))
+    lp = traces[-1].pair.target_log_prob
+    say(f"phase 5 MSOA slice on {card or 'the CPU'} (M="
+        f"{model.data.num_locations}, T={model.num_steps}, 1 chain, "
+        f"P={state.u.shape[1]}): {timed} timed transitions, {ms:.2f} "
+        f"ms/transition, launches {json.dumps(launches)}, acceptance "
+        f"{json.dumps(acc)}, logp {float(lp[0])!r}, peak {peak:.0f} MiB "
+        f"({time.perf_counter() - t0:.1f} s)")
+    breakdown = ""
+    if dev.type == "cuda":
+        sweep_ms = check_threaded_sweep(torch, model, state, tune, gen)
+        breakdown = (f"MSOA breakdown: HMC density value+grad "
+                     f"{grad_ms(torch, model, state):.3f} ms (x17 per "
+                     f"transition), unfused sweep {sweep_ms:.1f} ms (host "
+                     f"clock, one sweep)")
+    return ms, launches["bsr_matmul"], breakdown
+
+
+def rehearse_msoa(torch):
+    """The MSOA path on the CPU at a tiny size (operators forced)."""
+    from covid19uk_tpu_torch.inference.gibbs import ChainState
+    from covid19uk_tpu_torch.utils.synthetic import (
+        build_synthetic_model, initial_chain_state)
+
+    model = build_synthetic_model(150, 30, torch.float32, sparse=True,
+                                  radius_frac=MSOA_RADIUS, keep_C=False,
+                                  device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    st = initial_chain_state(model, gen)
+    state = ChainState(u=st.u[None], events=st.events[None])
+    phase_msoa(torch, model, state, gen, timed=2)
 
 
 def main(argv):
@@ -286,10 +527,11 @@ def main(argv):
     from covid19uk_tpu_torch.ops import _build
 
     if rehearse:
-        say("phase 0 rehearsal on the CPU at a tiny size (phases 1-2 "
-            "skipped, no result line)")
+        say("phase 0 rehearsal on the CPU at a tiny size (phases 1, 2 and 4"
+            " skipped, no result line)")
         model, state, gen = build_chains(torch, "cpu", **TINY)
         phase_slice(torch, model, state, gen, timed=2)
+        rehearse_msoa(torch)
         return 3
 
     card = card_line()
@@ -298,30 +540,54 @@ def main(argv):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    built = _build.fused_sweep_library()
-    ptxas = " | ".join(
-        line.split(":", 1)[-1].strip() for line in built.log.splitlines()
-        if "Used" in line or "spill" in line
-    )
-    say(f"phase 1 nvcc build {built.seconds:.1f} s: {ptxas}")
+    t1 = time.perf_counter()
+    built = _build.build_all()
+    for name, b in built.items():
+        ptxas = " | ".join(
+            line.split(":", 1)[-1].strip() for line in b.log.splitlines()
+            if "Used" in line or "spill" in line
+        )
+        say(f"phase 1 nvcc {name} {b.seconds:.1f} s: {ptxas}")
+    say(f"phase 1 both builds {time.perf_counter() - t1:.1f} s wall")
 
     model, state, gen = build_chains(torch, "cuda", M, T, C)
     torch.cuda.synchronize()
     say(f"model and {C} chains on the card ({time.perf_counter() - t0:.1f} s)")
     k1 = phase_kernel(torch, model, state, gen)
-    ms, launches = phase_slice(torch, model, state, gen, N_TIMED, card)
+    ms, k1_launches = phase_slice(torch, model, state, gen, N_TIMED, card)
     say(f"breakdown: HMC density value+grad {grad_ms(torch, model, state):.3f}"
         f" ms (x17 per transition), fused sweep {k1['ms']:.3f} ms")
+    del model, state
 
-    kernels = [dict(
-        name="fused_sweep", route="cuda",
-        source="covid19uk_tpu_torch/ops/csrc/fused_sweep.cu",
-        replaces="covid19uk_tpu/ops/pallas/fused_sweep.py:751",
-        launches=launches, max_abs_err=k1["err"], ms=k1["ms"],
-        plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-        bound_by=k1["bound_by"], library_ms=None,
-    )]
-    say(f"{ms:.3f} ms per transition on {card}; wall "
+    t1 = time.perf_counter()
+    msoa, mstate, mgen = build_msoa(torch, "cuda", MSOA_M, MSOA_T)
+    torch.cuda.synchronize()
+    op = msoa.data.Cstar_bsr
+    say(f"MSOA model on the card: block density {op.block_density:.3f}, "
+        f"values {tuple(op.values.shape)}, banded CAR "
+        f"{tuple(msoa.data.car_band.diag.shape)} "
+        f"({time.perf_counter() - t1:.1f} s)")
+    k2 = phase_k2(torch, msoa, mgen)
+    msoa_ms, k2_launches, breakdown = phase_msoa(torch, msoa, mstate, mgen,
+                                                 MSOA_TIMED, card)
+    say(f"{breakdown}, K2 {k2['ms']:.4f} ms")
+
+    kernels = [
+        dict(name="fused_sweep", route="cuda",
+             source="covid19uk_tpu_torch/ops/csrc/fused_sweep.cu",
+             replaces="covid19uk_tpu/ops/pallas/fused_sweep.py:751",
+             launches=k1_launches, max_abs_err=k1["err"], ms=k1["ms"],
+             plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
+             bound_by=k1["bound_by"], library_ms=None),
+        dict(name="bsr_matmul", route="cuda",
+             source="covid19uk_tpu_torch/ops/csrc/block_sparse.cu",
+             replaces="covid19uk_tpu/ops/pallas/block_sparse.py:118",
+             launches=k2_launches, max_abs_err=k2["err"], ms=k2["ms"],
+             plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
+             bound_by=k2["bound_by"], library_ms=k2["library_ms"]),
+    ]
+    say(f"{ms:.3f} ms per transition at M={M}, C={C}; {msoa_ms:.3f} ms per "
+        f"transition at M={MSOA_M}, one chain; on {card}; wall "
         f"{time.perf_counter() - t0:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -19,15 +19,28 @@ def tensor(a, device):
 
 
 def model_data(data, device):
-    """A JAX ``ModelData`` (dense) as the port's ``ModelData``."""
-    for field in ("Cstar_bsr", "car_band"):
-        if getattr(data, field, None) is not None:
-            raise NotImplementedError(
-                f"{field} is not ported yet (MSOA-scale slice)"
-            )
-    return ModelData(
-        **{f: tensor(getattr(data, f), device) for f in ModelData._fields}
-    )
+    """A JAX ``ModelData`` as the port's ``ModelData``, with its
+    block-sparse ``Cstar_bsr`` and banded ``car_band`` operators."""
+    from covid19uk_tpu_torch.ops.banded import BandedSym
+    from covid19uk_tpu_torch.ops.block_sparse import BlockSparse
+
+    def index(a):
+        return None if a is None else tensor(a, device).long()
+
+    fields = {f: tensor(getattr(data, f), device)
+              for f in ModelData._fields[:8]}
+    bsr = getattr(data, "Cstar_bsr", None)
+    if bsr is not None:
+        fields["Cstar_bsr"] = BlockSparse(
+            tensor(bsr.values, device), tensor(bsr.col_idx, device),
+            int(bsr.n), index(bsr.perm), index(bsr.inv_perm))
+    band = getattr(data, "car_band", None)
+    if band is not None:
+        fields["car_band"] = BandedSym(
+            tensor(band.diag, device), tensor(band.upper, device),
+            index(band.perm), index(band.inv_perm),
+            int(band.n))
+    return ModelData(**fields)
 
 
 def model(jax_model, device):

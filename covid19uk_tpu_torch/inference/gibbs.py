@@ -1,11 +1,15 @@
 """Metropolis-within-Gibbs transition: HMC on parameters + the event sweep.
 
-Port of ``covid19uk_tpu/inference/gibbs.py:make_mcmc_step`` for the
-sampling transition: HMC over the flat unconstrained parameters, then U
-multiscans of the four event kernels as one fused CUDA kernel launch
-(:mod:`covid19uk_tpu_torch.ops.fused_sweep`).  Chains are the leading
-dimension of every tensor.  Pair moves, the unfused sweep and the
-off-default kernels are later slices of the port and raise
+Port of ``covid19uk_tpu/inference/gibbs.py:make_mcmc_step``: HMC over the
+flat unconstrained parameters, then U multiscans of the four event kernels
+(move S->E, move E->I, occult S->E, occult E->I) and the pair moves.  The
+fused sweep runs the multiscans as one CUDA kernel launch
+(:mod:`covid19uk_tpu_torch.ops.fused_sweep`) with the pair moves after
+it; the unfused sweep (:func:`event_sweep`) runs the kernels of
+:mod:`covid19uk_tpu_torch.inference.event_kernels` in order, with the
+commute threaded through them at M >= 1024.  Chains are the leading
+dimension of every tensor.  The gamma0-compensated kernels and the gamma
+Gibbs step are later slices of the port and raise
 ``NotImplementedError``.
 """
 
@@ -14,7 +18,16 @@ from typing import NamedTuple
 import torch
 
 from covid19uk_tpu_torch.inference import hmc
-from covid19uk_tpu_torch.inference.likelihood import make_context
+from covid19uk_tpu_torch.inference.event_kernels import (
+    EventMoveInfo,
+    event_move_step,
+    occult_step,
+    pair_move_step,
+)
+from covid19uk_tpu_torch.inference.likelihood import (
+    WindowedEvaluator,
+    make_context,
+)
 from covid19uk_tpu_torch.models import seir
 from covid19uk_tpu_torch.models.spec import (
     constrain_log_det_jacobian,
@@ -42,15 +55,6 @@ class HMCTunables(NamedTuple):
     x_decay_ei: object = None
 
 
-class EventMoveInfo(NamedTuple):
-    is_accepted: torch.Tensor
-    target_log_prob: torch.Tensor
-    m: torch.Tensor  # proposed location(s)
-    t: torch.Tensor  # proposed source time(s)
-    delta_t: torch.Tensor  # displacement (moves) or +/-1 (occults)
-    x_star: torch.Tensor  # number of events moved/added/deleted
-
-
 class GammaGibbsInfo(NamedTuple):
     is_accepted: torch.Tensor
     log_accept_ratio: torch.Tensor
@@ -65,7 +69,7 @@ class StepTrace(NamedTuple):
     occult_se: EventMoveInfo
     occult_ei: EventMoveInfo
     comp_ei: EventMoveInfo  # zeros: compensate_gamma0 is not ported
-    pair: EventMoveInfo  # zeros: num_pair_updates == 0
+    pair: EventMoveInfo  # zeros when num_pair_updates == 0
     gamma: GammaGibbsInfo  # zeros: gamma_gibbs is not ported
 
 
@@ -98,12 +102,13 @@ class EventKernelConfig(NamedTuple):
 class StepNoise(NamedTuple):
     """Draws a transition uses, for injecting another RNG's numbers:
     momentum ``z [C, P]``, HMC accept uniform ``u_accept [C]`` and the
-    sweep's uniform tables (:func:`ops.fused_sweep.draw_tables`)."""
+    fused sweep's uniform tables (:func:`ops.fused_sweep.draw_tables`;
+    None for the unfused sweep, which draws from the generator)."""
 
     z: torch.Tensor
     u_accept: torch.Tensor
-    tbl: torch.Tensor
-    ttbl: torch.Tensor
+    tbl: torch.Tensor = None
+    ttbl: torch.Tensor = None
 
 
 def resolve_event_config(event_config, M):
@@ -169,13 +174,116 @@ def sweep_config(cfg):
     )
 
 
+def case_guide_logits(events, t_range, floor):
+    """``[C, M]`` fixed location weights (log scale) for guided proposals:
+    observed I->R cases summed over ``[t_range[0], t_range[1])``, mixed
+    with a uniform floor.  No kernel modifies ``events[..., 2]``, so the
+    weights are state-independent and their Hastings factor cancels."""
+    M = events.shape[-3]
+    cases_w = torch.sum(events[..., t_range[0]:t_range[1], 2], dim=-1)
+    total = torch.sum(cases_w, dim=-1, keepdim=True)
+    share = torch.where(
+        total > 0, (1.0 - floor) * cases_w / torch.clamp(total, min=1.0),
+        0.0)
+    return torch.log(share + floor / M)
+
+
+def _zero_info(logp, n):
+    C = logp.shape[0]
+    z = torch.zeros((C, n), dtype=logp.dtype, device=logp.device)
+    return EventMoveInfo(
+        is_accepted=torch.zeros(C, dtype=torch.bool, device=logp.device),
+        target_log_prob=logp, m=z, t=z, delta_t=z, x_star=z,
+    )
+
+
+class SweepResult(NamedTuple):
+    events: torch.Tensor
+    state: torch.Tensor
+    commute: torch.Tensor  # threaded, or the input commute when unthreaded
+    logp: torch.Tensor
+    infos: tuple  # EventMoveInfo of the last multiscan: the four kernels
+    pair: EventMoveInfo  # and the last pair move
+
+
+def _decay(override, default):
+    return default if override is None else override
+
+
+def pair_sweep(model, cfg, ctx, events, state, commute, logp, generator,
+               n_pair, guide_logits=None):
+    """``n_pair`` pair moves with the commute threaded; returns
+    ``(events, state, commute, logp, info of the last)``."""
+    move_eval = WindowedEvaluator(ctx=ctx,
+                                  window=min(cfg.dmax + 1, model.num_steps))
+    info = _zero_info(logp, cfg.pair_mmax)
+    for _ in range(n_pair):
+        events, state, commute, logp, info = pair_move_step(
+            generator, events, state, logp, move_eval, cfg.dmax,
+            cfg.pair_mmax, cfg.nmax, cfg.pair_move_decay, cfg.x_decay,
+            commute=commute, guide_logits=guide_logits)
+    return events, state, commute, logp, info
+
+
+def event_sweep(model, cfg, ctx, events, state, commute, logp, tune,
+                generator):
+    """The unfused sweep: U multiscans of move S->E, move E->I, occult
+    S->E, occult E->I and ``num_pair_updates`` pair moves, on every chain.
+
+    ``cfg`` is a resolved :class:`EventKernelConfig`; ``ctx`` the
+    :class:`LikelihoodContext` at the chains' parameters; ``state`` and
+    ``commute`` consistent with ``events``, which the guide weights come
+    from.  With ``cfg.thread_commute`` the kernels slice the commute and
+    rank-1 update it; otherwise every windowed delta recomputes it."""
+    T = model.num_steps
+    occ_guide = (case_guide_logits(events, cfg.t_range,
+                                   cfg.occult_guide_floor)
+                 if cfg.occult_guided else None)
+    move_guide = (case_guide_logits(events, (0, T), cfg.move_guide_floor)
+                  if cfg.move_guided else None)
+    md_se = _decay(tune.move_decay_se, cfg.move_decay)
+    md_ei = _decay(tune.move_decay_ei, cfg.move_decay)
+    xd_se = _decay(tune.x_decay_se, cfg.x_decay)
+    xd_ei = _decay(tune.x_decay_ei, cfg.x_decay)
+    move_eval = WindowedEvaluator(ctx=ctx, window=min(cfg.dmax + 1, T))
+    # an occult at t changes the state at every t' > t: the window spans
+    # [t_range[0], T)
+    occ_eval = WindowedEvaluator(ctx=ctx, window=T - cfg.t_range[0])
+    cm = commute if cfg.thread_commute else None
+    pair = _zero_info(logp, cfg.pair_mmax)
+    for _ in range(cfg.num_event_time_updates):
+        events, state, cm, logp, i_mse = event_move_step(
+            generator, events, state, logp, move_eval, 0, cfg.dmax,
+            cfg.mmax, cfg.nmax, md_se, xd_se, commute=cm,
+            guide_logits=move_guide)
+        events, state, cm, logp, i_mei = event_move_step(
+            generator, events, state, logp, move_eval, 1, cfg.dmax,
+            cfg.mmax, cfg.nmax, md_ei, xd_ei, commute=cm,
+            guide_logits=move_guide)
+        events, state, cm, logp, i_ose = occult_step(
+            generator, events, state, logp, occ_eval, 0, cfg.t_range,
+            cfg.occult_nmax, cfg.x_decay, guide_logits=occ_guide,
+            commute=cm)
+        events, state, cm, logp, i_oei = occult_step(
+            generator, events, state, logp, occ_eval, 1, cfg.t_range,
+            cfg.occult_nmax, cfg.x_decay, guide_logits=occ_guide,
+            commute=cm)
+        if cfg.num_pair_updates > 0:
+            events, state, cm, logp, pair = pair_sweep(
+                model, cfg, ctx, events, state, cm, logp, generator,
+                cfg.num_pair_updates, guide_logits=move_guide)
+    return SweepResult(events, state, cm if cfg.thread_commute else commute,
+                       logp, (i_mse, i_mei, i_ose, i_oei), pair)
+
+
 def make_mcmc_step(model, num_leapfrog_steps: int,
                    event_config: EventKernelConfig):
     """Builds the MCMC transition for a batch of chains.
 
     Returns ``step(state, tune, generator=None, noise=None) ->
     (ChainState, StepTrace)``.  Randomness comes from ``generator`` (on
-    the model's device) unless ``noise`` (:class:`StepNoise`) is given.
+    the model's device); ``noise`` (:class:`StepNoise`) replaces the HMC
+    draws and the fused sweep's tables.
     """
     T = model.num_steps
     M = model.data.num_locations
@@ -184,19 +292,13 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
         raise ValueError(
             f"t_range={cfg.t_range} must satisfy 0 <= lo < hi <= T={T}"
         )
-    if not cfg.fused_sweep:
+    if cfg.compensate_gamma0 or cfg.gamma_gibbs or (
+            cfg.num_pair_updates > 0 and cfg.pair_compensate_gamma0):
         raise NotImplementedError(
-            "the unfused event sweep is not ported yet (a later slice: "
-            "likelihood.WindowedEvaluator and event_kernels); use "
-            "fused_sweep='always'"
+            "compensate_gamma0 / pair_compensate_gamma0 / gamma_gibbs are "
+            "not ported yet (the off-default kernels slice)"
         )
-    if cfg.num_pair_updates > 0:
-        raise NotImplementedError(
-            "pair moves are not ported yet (the pair-move slice: "
-            "WindowedEvaluator + event_kernels.pair_move_step); use "
-            "num_pair_updates=0"
-        )
-    sweep_cfg = sweep_config(cfg)
+    sweep_cfg = sweep_config(cfg) if cfg.fused_sweep else None
 
     def step(state: ChainState, tune: HMCTunables, generator=None,
              noise=None):
@@ -227,34 +329,57 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
         params = unpack_parameters(constrain_parameters(u_new), T, M)
         ctx0 = make_context(model, params)
         logp0 = hmc_info.target_log_prob  # logp(u_new, old events)
+        gamma = GammaGibbsInfo(
+            is_accepted=torch.zeros(C, dtype=torch.bool, device=device),
+            log_accept_ratio=torch.zeros(C, dtype=dtype, device=device),
+        )
 
-        def pick(override, default):
-            return default if override is None else override
+        if not cfg.fused_sweep:
+            res = event_sweep(model, cfg, ctx0, state.events, full_state,
+                              commute, logp0, tune, generator)
+            trace = StepTrace(
+                hmc_info, *res.infos,
+                comp_ei=_zero_info(res.logp, cfg.mmax), pair=res.pair,
+                gamma=gamma,
+            )
+            return ChainState(u=u_new, events=res.events), trace
 
         decays = torch.stack(
             [
                 torch.as_tensor(v, dtype=torch.float32, device=device)
                 .expand(C)
                 for v in (
-                    pick(tune.move_decay_se, cfg.move_decay),
-                    pick(tune.move_decay_ei, cfg.move_decay),
-                    pick(tune.x_decay_se, cfg.x_decay),
-                    pick(tune.x_decay_ei, cfg.x_decay),
+                    _decay(tune.move_decay_se, cfg.move_decay),
+                    _decay(tune.move_decay_ei, cfg.move_decay),
+                    _decay(tune.x_decay_se, cfg.x_decay),
+                    _decay(tune.x_decay_ei, cfg.x_decay),
                     cfg.x_decay,
                 )
             ],
             dim=-1,
         )
-        if noise is None:
+        if noise is None or noise.tbl is None:
             tbl, ttbl = _fs.draw_tables(generator, C, M, T, sweep_cfg,
                                         device)
         else:
             tbl, ttbl = noise.tbl, noise.ttbl
-        ev_f, _, _, logp_f, tr = _fs.fused_sweep(
+        ev_f, st_f, cm_f, logp_f, tr = _fs.fused_sweep(
             tbl, ttbl, state.events, full_state, commute, logp0,
             ctx0.exp_eta, ctx0.psi_w, ctx0.rate_ir_t, ctx0.N, ctx0.Cstar,
             decays, sweep_cfg,
         )
+        # Kernel order within a sweep does not change the stationary
+        # distribution, so the pair moves run after the fused multiscans
+        # (as many as the unfused sweep runs), with the commute the kernel
+        # returns threaded through them.
+        logp_f = logp_f.to(dtype)
+        if cfg.num_pair_updates > 0:
+            ev_f, _, _, logp_f, pair = pair_sweep(
+                model, cfg, ctx0, ev_f, st_f.to(dtype), cm_f.to(dtype),
+                logp_f, generator,
+                cfg.num_event_time_updates * cfg.num_pair_updates)
+        else:
+            pair = _zero_info(logp_f, cfg.pair_mmax)
 
         mm = cfg.mmax
         cols = [2 + j * mm for j in range(5)]
@@ -275,26 +400,15 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
                                         for j in range(1, 6)]
             )
 
-        def zero_info(n):
-            z = torch.zeros((C, n), dtype=dtype, device=device)
-            return EventMoveInfo(
-                is_accepted=torch.zeros(C, dtype=torch.bool, device=device),
-                target_log_prob=logp_f.to(dtype), m=z, t=z, delta_t=z,
-                x_star=z,
-            )
-
         trace = StepTrace(
             hmc=hmc_info,
             move_se=move_info(0),
             move_ei=move_info(1),
             occult_se=occ_info(2),
             occult_ei=occ_info(3),
-            comp_ei=zero_info(cfg.mmax),
-            pair=zero_info(cfg.pair_mmax),
-            gamma=GammaGibbsInfo(
-                is_accepted=torch.zeros(C, dtype=torch.bool, device=device),
-                log_accept_ratio=torch.zeros(C, dtype=dtype, device=device),
-            ),
+            comp_ei=_zero_info(logp_f, cfg.mmax),
+            pair=pair,
+            gamma=gamma,
         )
         return ChainState(u=u_new, events=ev_f), trace
 

@@ -1,6 +1,6 @@
 """CovidUK model: priors + SEIR process as one log-density (torch).
 
-Port of the dense path of ``covid19uk_tpu/models/spec.py``.  Parameters
+Port of ``covid19uk_tpu/models/spec.py``.  Parameters
 may carry a leading chain dimension (``psi`` of shape ``[C]``, ``alpha_t``
 of ``[C, T-1]`` and so on); every function broadcasts over it, so C chains
 are evaluated together and autograd of the sum over chains gives each
@@ -37,11 +37,16 @@ def _tail(x, n):
 
 
 class ModelData(NamedTuple):
-    """Pre-processed covariates on the device (dense path).
+    """Pre-processed covariates on the device.
 
     Same fields and host arithmetic as the JAX ``ModelData``: ``Cstar`` is
     ``C + C'`` with diagonal ``-colsum(C)``, ``car_precision`` is
-    ``Dw - rho * adjacency`` and ``car_logdet`` its log-determinant."""
+    ``Dw - rho * adjacency`` and ``car_logdet`` its log-determinant.
+    ``Cstar_bsr`` is an optional block-sparse operator for ``Cstar``
+    (:class:`ops.block_sparse.BlockSparse`, the K2 kernel) and
+    ``car_band`` an optional block-tridiagonal operator for the CAR
+    precision (:class:`ops.banded.BandedSym`); with ``car_band`` the dense
+    ``car_precision`` is a ``[0, 0]`` placeholder."""
 
     C: torch.Tensor
     Cstar: torch.Tensor
@@ -51,25 +56,24 @@ class ModelData(NamedTuple):
     log_area: torch.Tensor
     car_precision: torch.Tensor
     car_logdet: torch.Tensor
+    Cstar_bsr: object = None
+    car_band: object = None
 
     @property
     def num_locations(self):
         return self.N.shape[0]
 
     @classmethod
-    def create(cls, covariates, dtype=torch.float32, sparse=False,
-               keep_C=True, device="cuda"):
+    def create(cls, covariates, dtype=torch.float32, sparse="auto",
+               keep_C=True, num_chains=1, device="cuda"):
         """Builds ModelData from raw covariate arrays (keys ``C``, ``W``,
         ``N``, ``adjacency``, ``weekday``, ``area``) on ``device``.
 
-        Only the dense operators exist in this port so far: ``sparse``
-        other than False raises ``NotImplementedError`` (the block-sparse
-        commuting operator comes with the MSOA-scale slice)."""
-        if sparse is not False:
-            raise NotImplementedError(
-                "sparse operators are not ported yet (MSOA-scale slice); "
-                "pass sparse=False"
-            )
+        ``sparse``: "auto" builds the block-sparse ``Cstar`` operator when
+        M >= 1024, the run is single-chain (``num_chains``) and the block
+        density after RCM reordering is <= 0.3, and the banded CAR
+        operator when M >= 1024; True forces both, False builds neither.
+        ``keep_C=False`` stores ``C`` as a ``[0, 0]`` placeholder."""
         hdtype = np.float64 if dtype == torch.float64 else np.float32
         C = np.array(covariates["C"], hdtype)
         np.fill_diagonal(C, 0.0)
@@ -92,31 +96,74 @@ class ModelData(NamedTuple):
         precision[idx, idx] += deg.astype(hdtype)
         car_logdet = _car_log_det(precision)
 
+        Cstar_bsr = _maybe_block_sparse(Cstar, dtype, sparse, num_chains,
+                                        device)
+        car_band = _maybe_banded(precision, dtype, sparse, device)
+
         def dev(a):
             return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
+        empty = torch.zeros((0, 0), dtype=dtype, device=device)
         return cls(
-            C=dev(C) if keep_C else torch.zeros((0, 0), dtype=dtype,
-                                                device=device),
+            C=dev(C) if keep_C else empty,
             Cstar=dev(Cstar),
             W=dev(np.squeeze(np.asarray(covariates["W"]))),
             N=dev(np.squeeze(np.asarray(covariates["N"]))),
             weekday=dev(weekday),
             log_area=dev(log_area),
-            car_precision=dev(precision),
+            car_precision=empty if car_band is not None else dev(precision),
             car_logdet=dev(car_logdet),
+            Cstar_bsr=Cstar_bsr,
+            car_band=car_band,
         )
+
+
+def _maybe_block_sparse(a, dtype, sparse, num_chains=1, device="cuda"):
+    """A :class:`BlockSparse` operator for ``a`` when it pays, as the JAX
+    package decides: not below M = 1024, not for several chains, not above
+    a block density of 0.3 (``sparse="auto"``); always for True."""
+    if sparse is False:
+        return None
+    M = a.shape[0]
+    if sparse == "auto" and (M < 1024 or num_chains >= 2):
+        return None
+    from covid19uk_tpu_torch.ops.block_sparse import BlockSparse
+
+    # symmetric by construction (Cstar = C + C')
+    bsr = BlockSparse.from_dense(a, dtype, check_symmetric=False,
+                                 device=device)
+    if sparse == "auto" and bsr.block_density > 0.3:
+        return None
+    return bsr
+
+
+def _maybe_banded(a, dtype, sparse, device="cuda"):
+    """A :class:`BandedSym` CAR-precision operator when it pays."""
+    if sparse is False:
+        return None
+    if sparse == "auto" and a.shape[0] < 1024:
+        return None
+    from covid19uk_tpu_torch.ops.banded import BandedSym
+
+    return BandedSym.from_dense(a, dtype, device=device)
 
 
 def _car_log_det(precision):
-    """``log det`` of the CAR precision (dense Cholesky on the host)."""
-    if precision.shape[0] > 2048:
-        raise NotImplementedError(
-            "the sparse log-determinant (M > 2048) comes with the "
-            "MSOA-scale slice"
-        )
-    L = np.linalg.cholesky(precision)
-    return 2.0 * np.sum(np.log(np.diag(L)))
+    """``log det`` of the CAR precision: dense Cholesky up to M = 2048, a
+    sparse LU above (the matrix is SPD and adjacency-sparse, so
+    ``log det = sum log|U_ii| + sum log|L_ii|``)."""
+    M = precision.shape[0]
+    if M <= 2048:
+        L = np.linalg.cholesky(precision)
+        return 2.0 * np.sum(np.log(np.diag(L)))
+    from scipy.sparse import csc_matrix
+    from scipy.sparse.linalg import splu
+
+    lu = splu(csc_matrix(precision))
+    return float(
+        np.sum(np.log(np.abs(lu.U.diagonal())))
+        + np.sum(np.log(np.abs(lu.L.diagonal())))
+    )
 
 
 class Parameters(NamedTuple):
@@ -213,8 +260,11 @@ class CovidUK:
     # ---------- rates ----------
 
     def commute_pressure(self, infectious):
-        """``Cstar @ (I/N)`` for all days at once (a dense matmul)."""
+        """``Cstar @ (I/N)`` for all days at once: the block-sparse
+        operator (K2) when the model has one, else a dense matmul."""
         d = self.data
+        if d.Cstar_bsr is not None:
+            return d.Cstar_bsr.matmul(infectious / d.N[:, None])
         return torch.matmul(d.Cstar, infectious / d.N[:, None])
 
     def transition_rates(self, params: Parameters, state, commute=None):
@@ -374,7 +424,10 @@ class CovidUK:
         )
         x = params.spatial_effect
         M = self.data.num_locations
-        quad = torch.sum(x * (x @ self.data.car_precision), dim=-1)
+        if self.data.car_band is not None:
+            quad = self.data.car_band.quad(x)
+        else:
+            quad = torch.sum(x * (x @ self.data.car_precision), dim=-1)
         lp = lp + (
             0.5 * self.data.car_logdet - 0.5 * M * _LOG_2PI - 0.5 * quad
         )

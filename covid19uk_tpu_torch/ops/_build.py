@@ -90,15 +90,52 @@ def bind_fused_sweep(lib):
     return lib
 
 
+def bind_block_sparse(lib):
+    """Declares the C interface of ``csrc/block_sparse.cu`` on ``lib``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.bsr_matmul_launch
+    # values, col_idx, x, y, then R, K, S, Tp, the stream
+    fn.argtypes = [p] * 4 + [i] * 4 + [p]
+    fn.restype = ctypes.c_int
+    err = lib.block_sparse_error_string
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    return lib
+
+
+_BINDERS = {"fused_sweep": bind_fused_sweep,
+            "block_sparse": bind_block_sparse}
+
+
 @functools.cache
-def fused_sweep_library():
-    """The fused event-sweep kernel, built at first use."""
-    built = build("fused_sweep")
-    bind_fused_sweep(built.lib)
+def library(name):
+    """The kernel library ``csrc/<name>.cu``, built at first use."""
+    built = build(name)
+    _BINDERS[name](built.lib)
     return built
 
 
-def error_string(code):
-    """CUDA's name for an error code returned by a launch."""
-    msg = fused_sweep_library().lib.fused_sweep_error_string(code)
+def fused_sweep_library():
+    """The fused event-sweep kernel (K1)."""
+    return library("fused_sweep")
+
+
+def block_sparse_library():
+    """The block-sparse product kernel (K2)."""
+    return library("block_sparse")
+
+
+def build_all():
+    """Builds every kernel library at once, one nvcc process per source
+    started together; returns ``{name: Built}``."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(_BINDERS)) as pool:
+        return dict(zip(_BINDERS, pool.map(library, _BINDERS)))
+
+
+def error_string(fn, code):
+    """CUDA's name for an error code, from a library's ``*_error_string``
+    function ``fn``."""
+    msg = fn(code)
     return msg.decode() if msg else "unknown"

@@ -746,7 +746,8 @@ def _launch(tbl, ttbl, events, state, commute, logp, exp_eta, psi_w,
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_sweep_launch(*args, stream)
     if err != 0:
+        name = _build.error_string(lib.fused_sweep_error_string, err)
         raise RuntimeError(f"fused_sweep kernel launch failed: CUDA error "
-                           f"{err} ({_build.error_string(err)})")
+                           f"{err} ({name})")
     fused_sweep.launches += 1
     return _public_layout(outs, events, state, commute, logp)

@@ -59,9 +59,15 @@ def knn_adjacency(coords, k=6):
 
 
 def build_synthetic_model(M, T, dtype=torch.float32, rng_seed=0,
-                          sparse=False, radius_frac=0.12, device="cuda"):
+                          sparse="auto", radius_frac=0.12, keep_C=True,
+                          device="cuda"):
     """A CovidUK model over gravity-model covariates at (M, T) on
-    ``device``; the same covariates as the JAX builder for the same seed."""
+    ``device``; the same covariates as the JAX package's
+    ``build_synthetic_model`` for the same seed.
+
+    ``sparse`` and ``keep_C`` go to ``ModelData.create``; ``radius_frac``
+    is the commuting cutoff radius (0.12 suits M ~ 380, MSOA-scale runs
+    use 0.05)."""
     from covid19uk_tpu_torch.models.spec import CovidUK, ModelData
 
     rng = np.random.default_rng(rng_seed)
@@ -77,7 +83,8 @@ def build_synthetic_model(M, T, dtype=torch.float32, rng_seed=0,
         weekday=(np.arange(T) % 7 < 5).astype(float),
         area=rng.uniform(1e8, 5e9, size=M),
     )
-    data = ModelData.create(covariates, dtype, sparse=sparse, device=device)
+    data = ModelData.create(covariates, dtype, sparse=sparse, keep_C=keep_C,
+                            device=device)
     init = np.stack(
         [N - 60.0, np.full(M, 20.0), np.full(M, 40.0), np.zeros(M)], axis=-1
     )

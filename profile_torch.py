@@ -1,0 +1,115 @@
+#!/usr/bin/env python3
+"""Profiles MCMC transitions of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 profile_torch.py [out_dir]   # default out_dir: profile_out
+
+For each configuration of chip_smoke.py (full UK: M=380, T=120, 64
+chains, fused sweep; MSOA: M=7000, T=120, one chain, unfused sweep with
+pair moves), runs 2 transitions to warm up, 3 timed by the host clock,
+and 3 under torch.profiler (CPU and CUDA activity), and prints one line
+each: host wall time per transition (without the profiler), device time
+(the sum of the kernels' own device time), the device's busy share
+(device time over that wall time), kernel launches per transition, and
+the three kernels with the most device time.  The full tables go to
+``<out_dir>/profile_<name>.txt``.  Exits non-zero without a card.
+"""
+
+import json
+import os
+import sys
+import time
+
+N_WARM, N_PROFILED = 2, 3
+
+
+def profile_steps(torch, step, state, tune, gen):
+    """Host wall ms per transition without the profiler, then the
+    profiler over as many transitions."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(N_WARM):
+        state, _ = step(state, tune, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_PROFILED):
+        state, _ = step(state, tune, gen)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / N_PROFILED * 1e3
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(N_PROFILED):
+            state, _ = step(state, tune, gen)
+        torch.cuda.synchronize()
+    return prof, wall
+
+
+def summarize(torch, prof, wall, name, out_dir):
+    """One JSON line: the kernels' device time (events on the CUDA
+    device only: operator events carry their kernels' time too), launches
+    and busy share against the unprofiled wall time."""
+    events = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in events if e.device_type == cuda]
+    dev_ms = sum(dev_us(e) for e in kernels) / 1e3 / N_PROFILED
+    launches = sum(e.count for e in kernels) / N_PROFILED
+    top = sorted(kernels, key=dev_us, reverse=True)[:3]
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+        f.write(events.table(sort_by="self_device_time_total",
+                             row_limit=40))
+        f.write("\n")
+        f.write(events.table(sort_by="self_cpu_time_total", row_limit=40))
+    print(json.dumps(dict(
+        config=name, wall_ms_per_transition=wall,
+        device_ms_per_transition=dev_ms,
+        busy_share=dev_ms / wall,
+        kernel_launches_per_transition=launches,
+        top_kernels=[dict(name=e.key[:80],
+                          ms_per_transition=dev_us(e) / 1e3 / N_PROFILED,
+                          calls_per_transition=e.count / N_PROFILED)
+                     for e in top],
+    )), flush=True)
+
+
+def main(argv):
+    import torch
+
+    if not torch.cuda.is_available():
+        print("no CUDA device: profile_torch.py needs an NVIDIA card",
+              file=sys.stderr)
+        return 1
+    out_dir = argv[0] if argv else "profile_out"
+    os.makedirs(out_dir, exist_ok=True)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import chip_smoke as cs
+    from covid19uk_tpu_torch.inference.gibbs import HMCTunables, make_mcmc_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(cs.card_line(), flush=True)
+
+    model, state, gen = cs.build_chains(torch, "cuda", cs.M, cs.T, cs.C)
+    step = make_mcmc_step(model, 16, cs.event_config(cs.T))
+    tune = HMCTunables(step_size=torch.tensor(0.005, device="cuda"),
+                       inv_mass_diag=torch.ones(state.u.shape[1],
+                                                device="cuda"))
+    summarize(torch, *profile_steps(torch, step, state, tune, gen),
+              "uk_m380_c64", out_dir)
+    del model, state
+
+    model, state, gen = cs.build_msoa(torch, "cuda", cs.MSOA_M, cs.MSOA_T)
+    step = make_mcmc_step(model, 16, cs.msoa_config(cs.MSOA_T))
+    tune = HMCTunables(step_size=torch.tensor(0.01, device="cuda"),
+                       inv_mass_diag=torch.ones(state.u.shape[1],
+                                                device="cuda"))
+    summarize(torch, *profile_steps(torch, step, state, tune, gen),
+              "msoa_m7000_c1", out_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

@@ -22,6 +22,11 @@
 #define __shared__ static
 #define __launch_bounds__(x)
 #define __grid_constant__
+#define __align__(n) __attribute__((aligned(n)))
+
+struct float4 {
+  float x, y, z, w;
+};
 
 struct emu_dim3 {
   int x;

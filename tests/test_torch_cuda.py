@@ -62,3 +62,41 @@ def test_cuda_fused_sweep_matches_plain_version(guided):
     cols = [0] + list(range(2, tr.shape[-1]))
     assert torch.equal(tr[..., cols], tr_w[..., cols])
     assert int(tr[:, :, 0].sum()) > 0, "nothing accepted: vacuous"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("lead", [(), (3,)])
+def test_cuda_block_sparse_matches_plain_version(lead):
+    """K2 on the card against its plain version on the same inputs, within
+    1e-5 of |A| @ |x| (float32 sums in another order), and its gradient
+    through the autograd wrapper (one more launch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from covid19uk_tpu_torch.ops import block_sparse as bs
+
+    M, T = 1100, 37
+    model = synthetic.build_synthetic_model(M, T, torch.float32, sparse=True,
+                                            radius_frac=0.05, device="cuda")
+    op = model.data.Cstar_bsr
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    x = torch.randn(lead + (M, T), generator=gen, device="cuda",
+                    requires_grad=True)
+    before = bs.bsr_matmul.launches
+    y = op.matmul(x)
+    torch.cuda.synchronize()
+    assert bs.bsr_matmul.launches == before + 1
+    xp = x.detach()[..., op.perm, :]
+    want = (bs.bsr_matmul_reference(
+        op.values, op.col_idx, torch.nn.functional.pad(
+            xp.reshape((-1, M, T)), (0, 128 - T, 0, op.values.shape[0] * 128
+                                     - M)))[:, :M, :T]
+        .reshape(lead + (M, T)))[..., op.inv_perm, :]
+    scale = abs(op.todense()) @ x.detach().abs().cpu().numpy()
+    err = ((y.detach() - want).abs().cpu().numpy() / (scale + 1e-30)).max()
+    assert err <= 1e-5, err
+    (g,) = torch.autograd.grad(y.sum(), x)
+    assert bs.bsr_matmul.launches == before + 2
+    dense = op.todense().astype("float64")
+    g_err = (g.cpu().numpy() - dense.sum(axis=0)[:, None]) / (
+        abs(dense).sum(axis=0)[:, None])
+    assert abs(g_err).max() <= 1e-5

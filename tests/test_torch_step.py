@@ -105,10 +105,15 @@ def test_config_checks():
                 dict(occult_guided="yes"), dict(t_range=(0, 99))):
         with pytest.raises(ValueError):
             make(**bad)
-    for later in (dict(fused_sweep="never"), dict(num_pair_updates=1)):
+    for later in (dict(fused_sweep="never", compensate_gamma0=True),
+                  dict(fused_sweep="never", gamma_gibbs=True),
+                  dict(fused_sweep="never", num_pair_updates=1,
+                       pair_compensate_gamma0=True)):
         with pytest.raises(NotImplementedError):
             make(**later)
-    make()  # the slice's configuration builds
+    make()  # the slices' configurations build
+    make(fused_sweep="never", num_pair_updates=1, move_guided="always")
+    make(num_pair_updates=1)
 
 
 def test_chain_state_and_step_on_cpu():
@@ -130,8 +135,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys, json\n"
         "import covid19uk_tpu_torch, covid19uk_tpu_torch.convert\n"
         "import covid19uk_tpu_torch.inference.gibbs\n"
+        "import covid19uk_tpu_torch.inference.event_kernels\n"
+        "import covid19uk_tpu_torch.inference.likelihood\n"
         "import covid19uk_tpu_torch.ops._build\n"
+        "import covid19uk_tpu_torch.ops.banded\n"
+        "import covid19uk_tpu_torch.ops.block_sparse\n"
         "import covid19uk_tpu_torch.utils.synthetic\n"
+        "from covid19uk_tpu_torch.utils.synthetic import "
+        "build_synthetic_model\n"
+        "m = build_synthetic_model(150, 8, sparse=True, device='cpu')\n"
+        "assert m.data.Cstar_bsr is not None\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'covid19uk_tpu' or m.startswith('covid19uk_tpu.')]\n"
         "print(json.dumps(bad))\n"

@@ -11,7 +11,9 @@ Phases, one short line each:
   2. K1, the fused event sweep, against its plain PyTorch version at full
      UK width (M=380, T=120, 64 chains, U=5): events and state identical,
      commute within rtol 1e-5 (atol 1e-6), logp within 1e-5 relative;
-     times both;
+     times both, and K1's part split: the wrapper's layout work alone,
+     the kernel alone at U=0 (copy-in), U=1 and U=5, and from these its
+     fixed and per-multiscan parts;
   3. the sampling transition: synthetic full-UK model (float32), 64
      overdispersed chains, 2 untimed + 10 timed transitions of
      make_mcmc_step (fused sweep, no pair moves), invariants checked and
@@ -176,6 +178,37 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def k1_split(torch, fs, args, scfg):
+    """Phase 2's part split of K1, CUDA events over 20 repetitions each:
+    the wrapper's layout work alone (``fs._kernel_args``: casts, layout
+    copies, output allocation), and the kernel alone at U=0 (copy-in and
+    guide only), U=1 and the phase's U on arguments prepared once.  The
+    per-multiscan part is (t_U - t_1) / (U - 1), the fixed part t_1 less
+    one multiscan."""
+    from covid19uk_tpu_torch.ops import _build
+
+    lib = _build.fused_sweep_library().lib
+    stream = torch.cuda.current_stream().cuda_stream
+    U = scfg.num_updates
+    layout_ms = cuda_ms(torch, lambda: fs._kernel_args(*args, scfg), 20)
+    kernel_ms = {}
+    for u in (0, 1, U):
+        sub = (args[0][:, :u].contiguous(), args[1][:, :u].contiguous(),
+               *args[2:])
+        kargs, _ins, _outs = fs._kernel_args(
+            *sub, scfg._replace(num_updates=u))
+
+        def launch():
+            if lib.fused_sweep_launch(*kargs, stream) != 0:
+                raise RuntimeError("fused_sweep launch failed")
+
+        kernel_ms[u] = cuda_ms(torch, launch, 20)
+    per = (kernel_ms[U] - kernel_ms[1]) / (U - 1)
+    return dict(layout_ms=layout_ms, u0_ms=kernel_ms[0], u1_ms=kernel_ms[1],
+                uU_ms=kernel_ms[U],
+                per_multiscan_ms=per, fixed_ms=kernel_ms[1] - per)
+
+
 def phase_kernel(torch, model, state, gen):
     """Phase 2: the kernel against its plain version, both on the card."""
     from covid19uk_tpu_torch.ops import fused_sweep as fs
@@ -207,6 +240,17 @@ def phase_kernel(torch, model, state, gen):
         f"(events, state, trace), max abs err {err!r}, logp rel err "
         f"{lp_rel!r}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
         f"({time.perf_counter() - t0:.1f} s)")
+    split = k1_split(torch, fs, args, scfg)
+    say(f"phase 2 K1 part split: wrapper layout work "
+        f"{split['layout_ms']:.4f} ms")
+    say(f"phase 2 K1 part split: kernel alone at U=0 (copy-in only) "
+        f"{split['u0_ms']:.4f} ms")
+    say(f"phase 2 K1 part split: kernel alone at U=1 "
+        f"{split['u1_ms']:.4f} ms")
+    say(f"phase 2 K1 part split: kernel alone at U={scfg.num_updates} "
+        f"{split['uU_ms']:.4f} ms")
+    say(f"phase 2 K1 part split: fixed part {split['fixed_ms']:.4f} ms, "
+        f"per multiscan {split['per_multiscan_ms']:.4f} ms")
     return dict(ms=ms, plain_ms=plain_ms, err=err,
                 bound_ms=max(bytes_ms, ops_ms),
                 bound_by="bytes" if bytes_ms >= ops_ms else "operations")

@@ -48,11 +48,13 @@ def _nvcc():
                        "toolkit (nvcc on PATH or under /usr/local/cuda)")
 
 
-def build(name):
-    """Compiles ``csrc/<name>.cu`` into a shared library and loads it."""
+def build(name, defines=()):
+    """Compiles ``csrc/<name>.cu`` (with ``-D`` of each of ``defines``)
+    into a shared library and loads it."""
     src = _CSRC / f"{name}.cu"
     text = src.read_bytes()
-    digest = hashlib.sha256(text + " ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + [f"-D{d}" for d in defines]
+    digest = hashlib.sha256(text + " ".join(flags).encode())
     tag = digest.hexdigest()[:16]
     out = BUILD_DIR / f"lib{name}_{tag}.so"
     log_path = out.with_suffix(".log")
@@ -60,7 +62,7 @@ def build(name):
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".tmp{os.getpid()}.so")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+        cmd = [_nvcc(), *flags, "-o", str(tmp), str(src)]
         t0 = time.perf_counter()
         proc = subprocess.run(cmd, capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -81,8 +83,9 @@ def bind_fused_sweep(lib):
     """Declares the C interface of ``csrc/fused_sweep.cu`` on ``lib``."""
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn = lib.fused_sweep_launch
-    # 12 inputs, 5 outputs, 12 ints, guided flag, 2 floats, the stream
-    fn.argtypes = [p] * 17 + [i] * 12 + [i, f, f, p]
+    # 12 inputs, 5 outputs, the workspace, 12 ints, the guided flag, the
+    # two input layouts and the float4 flag, 2 floats, the stream
+    fn.argtypes = [p] * 18 + [i] * 12 + [i] * 4 + [f, f, p]
     fn.restype = ctypes.c_int
     err = lib.fused_sweep_error_string
     err.argtypes = [ctypes.c_int]
@@ -118,6 +121,18 @@ def library(name):
 def fused_sweep_library():
     """The fused event-sweep kernel (K1)."""
     return library("fused_sweep")
+
+
+@functools.cache
+def fused_sweep_phase_library():
+    """K1 built with ``-DK1_PHASES``: it also counts each phase's cycles
+    (thread 0's clock64, per block), read and zeroed by
+    ``fused_sweep_phase_cycles``; for profile_torch.py."""
+    lib = bind_fused_sweep(build("fused_sweep", ("K1_PHASES",)).lib)
+    fn = lib.fused_sweep_phase_cycles
+    fn.argtypes = [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
 
 
 def block_sparse_library():

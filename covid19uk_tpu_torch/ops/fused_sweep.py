@@ -13,12 +13,15 @@ tensors on a CUDA device and runs :func:`fused_sweep_reference`, the plain
 version of the same function, for tensors on the CPU.  The plain version
 writes the kernel's numerics with the same formulas and the same order of
 float32 operations, so that the two agree to rounding of the sums and
-make the same decisions.
+make the same decisions.  The kernel reads the caller's events and state
+as they lie (``[C, M, T, X]``, or the plane-major view this wrapper
+returns) and writes fresh outputs; the caller's tensors are not written.
 
 Quirks kept from the JAX kernel: every input is cast to float32, even for
 float64 chains; a rejected E->I move is reverted by subtracting the
 tentative update, which leaves ulp-level drift in the commute plane.
-Changed: ``num_updates < 1`` raises (the JAX kernel returns logp 0.0).
+Changed: ``num_updates < 1`` raises (the JAX kernel returns logp 0.0), and
+so does ``M < mmax`` (fewer locations than a move's distinct slots).
 """
 
 import math
@@ -620,6 +623,9 @@ def _check(tbl, ttbl, events, state, commute, logp, exp_eta, psi_w,
     if events.dim() != 4 or events.shape[-1] != 3:
         raise ValueError(f"events must be [C, M, T, 3], got {events.shape}")
     C, M, T, _ = events.shape
+    if M < cfg.mmax:
+        raise ValueError(f"mmax={cfg.mmax} distinct locations need M >= "
+                         f"mmax, got M={M}")
     t_lo, t_hi = cfg.t_range
     if not 0 <= t_lo < t_hi <= T:
         raise ValueError(f"t_range={cfg.t_range} must satisfy "
@@ -688,38 +694,66 @@ def fused_sweep(tbl, ttbl, events, state, commute, logp, exp_eta, psi_w,
 fused_sweep.launches = 0
 
 
+def _kernel_layout(t):
+    """``(tensor, cell_major)``: the caller's float32 ``[C, M, T, X]``
+    tensor as the kernel reads it, without a copy when it is contiguous
+    (cell-major) or a permuted view of a contiguous ``[C, X, M, T]``
+    (plane-major, as this wrapper returns its outputs); otherwise a
+    contiguous cell-major copy.  Float4 loads need 16-byte alignment; a
+    tensor that starts off it is copied."""
+    t = t.to(_F32)
+    planes = t.permute(0, 3, 1, 2)
+    if not t.is_contiguous() and planes.is_contiguous():
+        t, cell_major = planes, 0
+    else:
+        t, cell_major = t.contiguous(), 1
+    if t.data_ptr() % 16:
+        t = t.clone()
+    return t, cell_major
+
+
 def _kernel_args(tbl, ttbl, events, state, commute, logp, exp_eta, psi_w,
                  rate_ir_t, N, Cstar, decays, cfg):
-    """The kernel's arguments (after the stream) and its outputs: float32
-    contiguous inputs in the kernel's location-major layout
-    ``[C, plane, M, T]``, outputs allocated here."""
+    """The kernel's arguments (but the stream), the tensors they point to
+    that must stay alive until the launch is queued, and the outputs.  The
+    inputs go to the kernel as the caller holds them (float32, see
+    :func:`_kernel_layout`); the kernel converts layout as it copies them
+    into the outputs, allocated here in its location-major layout
+    ``[C, plane, M, T]``.  The caller's tensors are never written."""
     C, M, T, _ = events.shape
     dev = events.device
 
     def f32(t):
         return t.to(_F32).contiguous()
 
-    ev_in = events.to(_F32).permute(0, 3, 1, 2).contiguous()
-    st_in = state.to(_F32).permute(0, 3, 1, 2).contiguous()
-    ins = [f32(tbl), f32(ttbl), ev_in, st_in, f32(commute), f32(logp),
+    ev_in, ev_cell = _kernel_layout(events)
+    st_in, st_cell = _kernel_layout(state)
+    cm_in = f32(commute)
+    if cm_in.data_ptr() % 16:
+        cm_in = cm_in.clone()
+    ins = [f32(tbl), f32(ttbl), ev_in, st_in, cm_in, f32(logp),
            f32(exp_eta), f32(psi_w), f32(rate_ir_t), f32(N), f32(Cstar),
            f32(decays)]
     outs = [
-        torch.empty_like(ev_in),
-        torch.empty_like(st_in),
+        torch.empty((C, 3, M, T), dtype=_F32, device=dev),
+        torch.empty((C, 4, M, T), dtype=_F32, device=dev),
         torch.empty((C, M, T), dtype=_F32, device=dev),
         torch.empty((C,), dtype=_F32, device=dev),
         torch.empty((C, 4, trace_width(cfg.mmax)), dtype=_F32, device=dev),
     ]
+    # the kernel's workspace: an E->I move's accepted commute cells
+    work = torch.empty((C, M, T), dtype=_F32, device=dev)
     t_lo, t_hi = cfg.t_range
     gf = float(cfg.guide_floor)
-    args = [t.data_ptr() for t in ins + outs] + [
+    args = [t.data_ptr() for t in ins + outs + [work]] + [
         C, M, T, cfg.num_updates, ins[0].shape[2], ins[1].shape[3], cfg.mmax,
         cfg.nmax, cfg.dmax, cfg.occult_nmax, t_lo, t_hi,
-        int(bool(cfg.occult_guided)), 1.0 - gf, gf / M,
+        int(bool(cfg.occult_guided)), ev_cell, st_cell, int(T % 4 == 0),
+        1.0 - gf, gf / M,
     ]
-    # the inputs ride along so they stay alive until the launch is queued
-    return args, ins, outs
+    # the inputs and the workspace ride along so they stay alive until the
+    # launch is queued
+    return args, ins + [work], outs
 
 
 def _public_layout(outs, events, state, commute, logp):

@@ -10,16 +10,37 @@ and 3 under torch.profiler (CPU and CUDA activity), and prints one line
 each: host wall time per transition (without the profiler), device time
 (the sum of the kernels' own device time), the device's busy share
 (device time over that wall time), kernel launches per transition, and
-the three kernels with the most device time.  The full tables go to
-``<out_dir>/profile_<name>.txt``.  Exits non-zero without a card.
+the three kernels with the most device time, and the device time per
+transition of each hand kernel (K1 ``fused_sweep_kernel``, K2
+``bsr_matmul_kernel``).  The full tables go to
+``<out_dir>/profile_<name>.txt``.  Then K1 alone at chip_smoke.py phase
+2's inputs, built with its per-phase cycle counters (-DK1_PHASES): one
+line with each phase's share of thread 0's clock64 cycles, the mean over
+the 64 blocks, and the cycles of a launch.  Exits non-zero without a card.
 """
 
+import ctypes
 import json
 import os
 import sys
 import time
 
 N_WARM, N_PROFILED = 2, 3
+HAND_KERNELS = ("fused_sweep_kernel", "bsr_matmul_kernel")
+# K1's phases in the order of its kPh* enum (csrc/fused_sweep.cu)
+K1_PHASES = (
+    "copy-in", "guide logits", "uniforms wait",
+    "move S->E top-mmax", "move E->I top-mmax",
+    "move S->E slot days", "move E->I slot days",
+    "move E->I plane pass",
+    "move S->E decision", "move E->I decision",
+    "move S->E apply", "move E->I apply",
+    "occult S->E pick", "occult E->I pick",
+    "occult S->E column delta", "occult E->I column and plane delta",
+    "occult S->E decision", "occult E->I decision",
+    "occult S->E apply", "occult E->I apply",
+)
+K1_PHASE_BLOCKS = 1024  # kPhaseBlocks
 
 
 def profile_steps(torch, step, state, tune, gen):
@@ -58,6 +79,8 @@ def summarize(torch, prof, wall, name, out_dir):
     dev_ms = sum(dev_us(e) for e in kernels) / 1e3 / N_PROFILED
     launches = sum(e.count for e in kernels) / N_PROFILED
     top = sorted(kernels, key=dev_us, reverse=True)[:3]
+    hand = {k: sum(dev_us(e) for e in kernels if k in e.key) / 1e3
+            / N_PROFILED for k in HAND_KERNELS}
     with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
         f.write(events.table(sort_by="self_device_time_total",
                              row_limit=40))
@@ -68,10 +91,40 @@ def summarize(torch, prof, wall, name, out_dir):
         device_ms_per_transition=dev_ms,
         busy_share=dev_ms / wall,
         kernel_launches_per_transition=launches,
+        hand_kernel_ms_per_transition=hand,
         top_kernels=[dict(name=e.key[:80],
                           ms_per_transition=dev_us(e) / 1e3 / N_PROFILED,
                           calls_per_transition=e.count / N_PROFILED)
                      for e in top],
+    )), flush=True)
+
+
+def k1_phases(torch, cs, model, state, gen):
+    """K1 built with its phase counters, at phase 2's inputs: one JSON
+    line of each phase's share of a block's cycles (thread 0's clock64,
+    mean over blocks) and the cycles of a launch."""
+    import numpy as np
+    from covid19uk_tpu_torch.ops import _build
+    from covid19uk_tpu_torch.ops import fused_sweep as fs
+
+    lib = _build.fused_sweep_phase_library()
+    args, scfg = cs.sweep_inputs(torch, model, state, gen)
+    kargs, _ins, _outs = fs._kernel_args(*args, scfg)
+    stream = torch.cuda.current_stream().cuda_stream
+    buf = (ctypes.c_ulonglong * (K1_PHASE_BLOCKS * len(K1_PHASES)))()
+    for _ in range(2):  # the first launch warms up; each read zeroes
+        if lib.fused_sweep_launch(*kargs, stream) != 0:
+            raise RuntimeError("fused_sweep launch failed")
+        torch.cuda.synchronize()
+        if lib.fused_sweep_phase_cycles(buf) != 0:
+            raise RuntimeError("reading K1's phase cycles failed")
+    C = state.u.shape[0]
+    cycles = np.frombuffer(buf, dtype=np.uint64).reshape(
+        K1_PHASE_BLOCKS, len(K1_PHASES))[:C].astype(np.float64).mean(0)
+    total = float(cycles.sum())
+    print(json.dumps(dict(
+        config="k1_phases_uk_m380_c64", cycles_per_launch=total,
+        share={n: float(c) / total for n, c in zip(K1_PHASES, cycles)},
     )), flush=True)
 
 
@@ -99,6 +152,7 @@ def main(argv):
                                                 device="cuda"))
     summarize(torch, *profile_steps(torch, step, state, tune, gen),
               "uk_m380_c64", out_dir)
+    k1_phases(torch, cs, model, state, gen)
     del model, state
 
     model, state, gen = cs.build_msoa(torch, "cuda", cs.MSOA_M, cs.MSOA_T)

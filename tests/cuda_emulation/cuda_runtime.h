@@ -2,8 +2,10 @@
 // tests/test_torch_cuda_emulated.py: one std::thread per CUDA thread, one
 // block at a time; __syncthreads() and the warp shuffles are
 // std::barrier's.  __shared__ variables become statics, shared by the
-// block's threads.  A barrier that not every thread reaches hangs, as on
-// the card: the test runs the kernel in a child process with a timeout.
+// block's threads.  cp.async (cuda_pipeline_primitives.h beside this
+// file) is a synchronous copy.  A barrier that not every thread reaches
+// hangs, as on the card: the test runs the kernel in a child process with
+// a timeout.
 // Only the features the port's kernels use are provided.
 #pragma once
 #include <algorithm>
@@ -27,6 +29,9 @@
 struct float4 {
   float x, y, z, w;
 };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 
 struct emu_dim3 {
   int x;
@@ -53,6 +58,32 @@ T __shfl_down_sync(unsigned, T v, int offset) {
   emu_warp_barrier[w]->arrive_and_wait();
   return r;
 }
+
+template <class T>
+T __shfl_xor_sync(unsigned, T v, int mask) {
+  const int w = emu_thread_idx.x >> 5, lane = emu_thread_idx.x & 31;
+  static_assert(sizeof(T) <= sizeof(double));
+  std::memcpy(&emu_warp_lanes[w][lane], &v, sizeof(T));
+  emu_warp_barrier[w]->arrive_and_wait();
+  T r;
+  std::memcpy(&r, &emu_warp_lanes[w][lane ^ mask], sizeof(T));
+  emu_warp_barrier[w]->arrive_and_wait();
+  return r;
+}
+
+inline unsigned __ballot_sync(unsigned, int pred) {
+  const int w = emu_thread_idx.x >> 5, lane = emu_thread_idx.x & 31;
+  const double bit = pred ? 1.0 : 0.0;
+  std::memcpy(&emu_warp_lanes[w][lane], &bit, sizeof(bit));
+  emu_warp_barrier[w]->arrive_and_wait();
+  unsigned r = 0;
+  for (int l = 0; l < 32; ++l)
+    if (emu_warp_lanes[w][l] != 0.0) r |= 1u << l;
+  emu_warp_barrier[w]->arrive_and_wait();
+  return r;
+}
+
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 
 typedef int cudaError_t;
 enum {

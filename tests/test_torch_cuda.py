@@ -37,21 +37,26 @@ def _sweep_args(C, M, T, cfg, gen):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("guided", [False, True])
-def test_cuda_fused_sweep_matches_plain_version(guided):
+@pytest.mark.parametrize("guided, mmax", [(False, 2), (True, 2), (True, 8)])
+def test_cuda_fused_sweep_matches_plain_version(guided, mmax):
+    """K1 against its plain version on the same inputs; the caller's
+    tensors are left as they were."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     C, M, T = 6, 40, 30
-    cfg = fs.SweepConfig(mmax=2, nmax=10, dmax=8, occult_nmax=5,
+    cfg = fs.SweepConfig(mmax=mmax, nmax=10, dmax=8, occult_nmax=5,
                          t_range=(T - 10, T), num_updates=3,
                          occult_guided=guided)
     gen = torch.Generator(device="cuda").manual_seed(0)
     args = _sweep_args(C, M, T, cfg, gen)
+    copies = [a.clone() for a in args]
     before = fs.fused_sweep.launches
     got = fs.fused_sweep(*args, cfg)
     torch.cuda.synchronize()
     assert fs.fused_sweep.launches == before + 1
-    want = fs.fused_sweep_reference(*args, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(args, copies))
+    rec = []
+    want = fs.fused_sweep_reference(*args, cfg, record=rec)
     ev, st, cm, lp, tr = [a.cpu() for a in got]
     ev_w, st_w, cm_w, lp_w, tr_w = [a.cpu() for a in want]
     assert torch.equal(ev, ev_w) and torch.equal(st, st_w)
@@ -61,7 +66,10 @@ def test_cuda_fused_sweep_matches_plain_version(guided):
     torch.testing.assert_close(lp, lp_w, rtol=1e-5, atol=0.0)
     cols = [0] + list(range(2, tr.shape[-1]))
     assert torch.equal(tr[..., cols], tr_w[..., cols])
-    assert int(tr[:, :, 0].sum()) > 0, "nothing accepted: vacuous"
+    accepted = sum(int((r["log_u"] < r["log_alpha"]).sum()) for r in rec)
+    assert accepted > 0, "nothing accepted: the apply paths never ran"
+    if mmax == 2:
+        assert int(tr[:, :, 0].sum()) > 0, "nothing accepted: vacuous"
 
 
 @pytest.mark.gpu

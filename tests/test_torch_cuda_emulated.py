@@ -33,12 +33,25 @@ TESTS = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(TESTS)
 CSRC = os.path.join(ROOT, "covid19uk_tpu_torch", "ops", "csrc")
 CASES = {
-    # name: (M, T, C, U, guided, seed)
-    "small": (12, 30, 3, 5, False, 5),
-    "small_guided": (12, 30, 3, 5, True, 6),
+    # name: (M, T, C, U, guided, seed, options)
+    "small": (12, 30, 3, 5, False, 5, {}),
+    "small_guided": (12, 30, 3, 5, True, 6, {}),
     # more locations than threads: the strided loops wrap
-    "wide": (400, 24, 1, 2, True, 2),
-    "full_width_chain": (380, 120, 1, 3, True, 0),
+    "wide": (600, 24, 1, 2, True, 2, {}),
+    "full_width_chain": (380, 120, 1, 3, True, 0, {}),
+    # one slot, and the most slots the kernel takes (a warp each)
+    "mmax1": (20, 30, 2, 2, False, 7, dict(mmax=1)),
+    "mmax8": (40, 30, 3, 3, True, 8, dict(mmax=8)),
+    # tables set so that move S->E's slots start on day 0 and day T-1, and
+    # move E->I's windows overlap and the move is accepted (its delta
+    # reaches logp)
+    "edge_days_overlap": (40, 30, 2, 1, False, 9, dict(edges=True)),
+    # events on half the plane cells (the rate-only term takes its
+    # logarithms only there) and long accepted E->I windows
+    "dense_events": (40, 30, 1, 1, False, 11, dict(dense=True)),
+    # inputs as plane-major views (the wrapper's own output layout), and
+    # T % 4 != 0 (the kernel's scalar copy-in)
+    "plane_major_odd_t": (13, 31, 2, 2, True, 4, dict(plane_major=True)),
 }
 
 
@@ -80,13 +93,24 @@ def emulated(tmp_path_factory):
     return get
 
 
-def _inputs(M, T, C, cfg, seed):
+def _inputs(M, T, C, cfg, seed, last_day_event=False, dense_events=False):
+    """The sweep's inputs for a synthetic model; with last_day_event, one
+    more S->E event on day T-1 at location 0 (the simulated epidemic has
+    none that late; an event on the last day changes no state); with
+    dense_events, one more S->E event on every even day and one more E->I
+    event on every odd day at every location (E only gains; S stays far
+    from 0)."""
     gen = torch.Generator().manual_seed(seed)
     model = synthetic.build_synthetic_model(M, T, torch.float32,
                                             device="cpu")
     p = synthetic.initial_parameters(model)
     params = Parameters(*[a.expand((C,) + a.shape) for a in p])
     events = model.sample_seir(gen, params)
+    if last_day_event:
+        events[:, 0, T - 1, 0] += 1.0
+    if dense_events:
+        events[:, :, 0::2, 0] += 1.0
+        events[:, :, 1::2, 1] += 1.0
     state = seir.compute_state(model.initial_state, events)
     commute = model.commute_pressure(state[..., 2])
     ctx = make_context(model, params)
@@ -97,13 +121,97 @@ def _inputs(M, T, C, cfg, seed):
             ctx.rate_ir_t, ctx.N, ctx.Cstar, decays)
 
 
+_TOP = 1.0 - 1e-7  # the largest uniform the gumbel keeps
+
+
+def _force(tables, cfg, M, c, k, i, loc, day, u_side, u_j, u_x=None):
+    """Sets chain c's uniforms of move k in tables = (tbl, ttbl) so that
+    slot i takes location loc (the (i+1)-th largest location gumbel) and
+    starts on day, with side, jump and, given u_x, count uniforms."""
+    tbl, ttbl = tables
+    o = fs.Offsets(M, cfg.mmax).move[k]
+    tbl[c, :, o["loc"] + loc] = 1.0 - (i + 1) * 1e-7
+    ttbl[c, :, day, k * cfg.mmax + i] = _TOP
+    tbl[c, :, o["side"] + i] = u_side
+    tbl[c, :, o["j"] + i] = u_j
+    if u_x is not None:
+        tbl[c, :, o["x"] + i] = u_x
+
+
+def _accept_ei(tables, cfg, M):
+    """Move E->I's accept uniform to 0: accepted unless its log alpha is
+    below log(1e-38)."""
+    tables[0][:, :, fs.Offsets(M, cfg.mmax).move[1]["acc"]] = 0.0
+
+
+def _edge_tables(inputs, cfg):
+    """Move S->E: slot 0 takes the location with the most events on day 0
+    and starts there, slot 1 the one with the most on day T-1, both
+    jumping their longest.  Move E->I: slot 0 moves one event from the
+    busiest day a of the busiest location four days later, slot 1 one
+    event from a busy day b in [a+2, a+7] of another location four days
+    earlier, so their windows overlap; the move is accepted."""
+    tables = (inputs[0].clone(), inputs[1].clone())
+    events = inputs[2]
+    M, T = events.shape[1], events.shape[2]
+
+    def jump4(side_len):  # u_j that jumps 4 days at the test's decay 0.85
+        return (1.0 - 0.85 ** 3.5) / (1.0 - 0.85 ** min(cfg.dmax, side_len))
+
+    for c in range(events.shape[0]):
+        se = events[c, :, :, 0]
+        first = int(se[:, 0].argmax())
+        last = se[:, T - 1].clone()
+        last[first] = -1.0
+        _force(tables, cfg, M, c, 0, 0, first, 0, 0.0, _TOP)
+        _force(tables, cfg, M, c, 0, 1, int(last.argmax()), T - 1, _TOP, _TOP)
+        ei = events[c, :, :, 1]
+        loc0 = int(ei.sum(1).argmax())
+        a = int(ei[loc0, :T - 8].argmax())
+        near = ei[:, a + 2:a + 8].clone()
+        near[loc0] = -1.0
+        loc1, off = divmod(int(near.argmax()), near.shape[1])
+        _force(tables, cfg, M, c, 1, 0, loc0, a, 0.0, jump4(T - 1 - a), 0.0)
+        _force(tables, cfg, M, c, 1, 1, loc1, a + 2 + off, _TOP,
+               jump4(a + 2 + off), 0.0)
+    _accept_ei(tables, cfg, M)
+    return tables + tuple(inputs[2:])
+
+
+def _dense_tables(inputs, cfg):
+    """For dense_events inputs: move E->I's slots move one event each from
+    the odd days 3 and T//2 - 2 of locations M-1 and M-2 as late as they
+    can, so the windows hold most days of every location, half the cells
+    with S->E events (queued warps fill unevenly); the move is accepted.
+    The slots' own rows, whose terms are the largest, are the last cells
+    a warp takes."""
+    tables = (inputs[0].clone(), inputs[1].clone())
+    M, T = inputs[2].shape[1], inputs[2].shape[2]
+    for c in range(inputs[2].shape[0]):
+        for i, day in enumerate((3, T // 2 - 2)):
+            _force(tables, cfg, M, c, 1, i, M - 1 - i, day, 0.0, _TOP, 0.0)
+    _accept_ei(tables, cfg, M)
+    return tables + tuple(inputs[2:])
+
+
 def _child(so_path, case):
     """Runs in a child process: emulated kernel vs plain version."""
-    M, T, C, U, guided, seed = CASES[case]
-    cfg = fs.SweepConfig(mmax=2, nmax=25, dmax=min(84, T // 2),
-                         occult_nmax=15, t_range=(T - T // 5, T),
-                         num_updates=U, occult_guided=guided)
-    inputs = _inputs(M, T, C, cfg, seed)
+    M, T, C, U, guided, seed, opt = CASES[case]
+    cfg = fs.SweepConfig(mmax=opt.get("mmax", 2), nmax=25,
+                         dmax=min(84, T // 2), occult_nmax=15,
+                         t_range=(T - T // 5, T), num_updates=U,
+                         occult_guided=guided)
+    inputs = _inputs(M, T, C, cfg, seed, last_day_event=opt.get("edges"),
+                     dense_events=opt.get("dense"))
+    if opt.get("edges"):
+        inputs = _edge_tables(inputs, cfg)
+    if opt.get("dense"):
+        inputs = _dense_tables(inputs, cfg)
+    if opt.get("plane_major"):
+        ev, st = (t.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)
+                  for t in inputs[2:4])
+        inputs = inputs[:2] + (ev, st) + inputs[4:]
+    before = [t.clone() for t in inputs]
     lib = _build.bind_fused_sweep(ctypes.CDLL(so_path))
     args, _ins, outs = fs._kernel_args(*inputs, cfg)
     assert lib.fused_sweep_launch(*args, None) == 0
@@ -111,7 +219,16 @@ def _child(so_path, case):
     rec = []
     want = fs.fused_sweep_reference(*inputs, cfg, record=rec)
     accepted = sum(int((r["log_u"] < r["log_alpha"]).sum()) for r in rec)
-    cols = [0] + list(range(2, fs.trace_width(cfg.mmax)))
+    mm = cfg.mmax
+    cols = [0] + list(range(2, fs.trace_width(mm)))
+    # the moves' slots 0 and 1 of the last multiscan: start days; windows
+    # of move E->I
+    t_src = want[4][:, :2, 2 + mm:2 + 2 * mm]
+    d = want[4][:, :2, 2 + 2 * mm:2 + 3 * mm]
+    lo = torch.minimum(t_src, t_src + d) + 1
+    hi = torch.maximum(t_src, t_src + d)
+    overlap = ((lo[:, 1, 0] <= hi[:, 1, 1]) & (lo[:, 1, 1] <= hi[:, 1, 0])
+               if mm > 1 else torch.zeros(C, dtype=torch.bool))
     result = dict(
         events=bool(torch.equal(got[0], want[0])),
         state=bool(torch.equal(got[1], want[1])),
@@ -120,6 +237,11 @@ def _child(so_path, case):
                        / (want[2].abs() + 1e-6)).max()),
         logp=float(((got[3] - want[3]).abs() / want[3].abs()).max()),
         accepted=accepted,
+        inputs_unchanged=all(torch.equal(a, b)
+                             for a, b in zip(before, inputs)),
+        day0=bool((t_src[:, 0, 0] == 0).any()),
+        last_day=bool((t_src[:, 0, min(1, mm - 1)] == T - 1).any()),
+        overlap_accepted=bool((overlap & (want[4][:, 1, 0] > 0.5)).any()),
     )
     print(json.dumps(result))
 
@@ -140,6 +262,11 @@ def test_emulated_kernel_matches_plain_version(emulated, case):
     assert r["events"] and r["state"] and r["trace"], r
     assert r["commute"] <= 1e-5 and r["logp"] <= 1e-5, r
     assert r["accepted"] > 0, "nothing accepted: the apply paths never ran"
+    assert r["inputs_unchanged"], "the kernel wrote the caller's tensors"
+    if CASES[case][-1].get("edges"):
+        assert r["day0"] and r["last_day"] and r["overlap_accepted"], r
+    if CASES[case][-1].get("dense"):
+        assert r["overlap_accepted"], r
 
 
 BSR_CASES = {

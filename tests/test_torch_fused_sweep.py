@@ -138,6 +138,30 @@ def test_wrapper_checks():
     assert tfs.fused_sweep.launches == before  # CPU: the plain version
 
 
+def test_kernel_reads_callers_layouts():
+    """The CUDA kernel takes the caller's float32 events and state without a
+    copy, cell-major or as the plane-major view the wrapper returns; a
+    tensor off 16-byte alignment (float4 loads) or of another type is
+    copied.  M < mmax (too few locations for a move's distinct slots)
+    raises."""
+    x = torch.arange(2 * 3 * 4 * 3, dtype=torch.float32).reshape(2, 3, 4, 3)
+    t, cell_major = tfs._kernel_layout(x)
+    assert cell_major == 1 and t.data_ptr() == x.data_ptr()
+    planes = x.permute(0, 3, 1, 2).contiguous()
+    t, cell_major = tfs._kernel_layout(planes.permute(0, 2, 3, 1))
+    assert cell_major == 0 and t.data_ptr() == planes.data_ptr()
+    off = torch.zeros(x.numel() + 1)[1:].view(x.shape)
+    off.copy_(x)
+    t, cell_major = tfs._kernel_layout(off)
+    assert cell_major == 1 and t.data_ptr() % 16 == 0 and torch.equal(t, x)
+    t, _ = tfs._kernel_layout(x.double())
+    assert t.dtype == torch.float32 and torch.equal(t, x)
+    few = torch.zeros((1, 3, T, 3))
+    with pytest.raises(ValueError, match="M >= mmax"):
+        tfs.fused_sweep(None, None, few, *[None] * 9,
+                        _cfg(False)._replace(mmax=4))
+
+
 def test_plain_version_matches_jax_kernel_full_width():
     """At the main path's shapes (M=380, T=120, U=5, bench knobs, guided
     occults) on the synthetic full-UK model, one chain."""

@@ -7,7 +7,8 @@
 Phases, one short line each:
   0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
   1. builds both CUDA kernels with nvcc, one process each, started
-     together (ptxas lines printed);
+     together (ptxas lines printed), and counts K2's SASS instructions by
+     opcode (HMMA: tensor cores) where the toolkit has cuobjdump;
   2. K1, the fused event sweep, against its plain PyTorch version at full
      UK width (M=380, T=120, 64 chains, U=5): events and state identical,
      commute within rtol 1e-5 (atol 1e-6), logp within 1e-5 relative;
@@ -18,10 +19,14 @@ Phases, one short line each:
      overdispersed chains, 2 untimed + 10 timed transitions of
      make_mcmc_step (fused sweep, no pair moves), invariants checked and
      K1's launches counted;
-  4. K2, the block-sparse product, against its plain version at the MSOA
-     shapes (x [7000, 120] and the windowed batch [4, 7000, 85]): error
-     within 1e-5 of |A| @ |x| elementwise; kernel, plain version and the
-     dense torch.matmul timed by CUDA events;
+  4. K2, the block-sparse product, through the main path's call
+     (Cstar_bsr.matmul on an unpadded x) against its plain version at the
+     MSOA shapes (x [7000, 120] and the windowed batch [4, 7000, 85]):
+     error within 1e-5 of |A| @ |x| elementwise, one launch a call,
+     bitwise-equal y over two calls, x unchanged; CUDA events time the
+     kernel alone (warm, and with a cold L2), the whole call (warm and
+     cold), the plain version and the dense torch.matmul; both bounds
+     printed (CUDA cores, tensor cores);
   5. the MSOA slice: synthetic M=7000, T=120 model (radius 0.05, float32)
      with the block-sparse commute and the banded CAR prior, one chain,
      2 untimed + 5 timed transitions of the unfused sweep with threaded
@@ -34,6 +39,8 @@ exits non-zero, as does a run without a CUDA device.
 import faulthandler
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -45,9 +52,11 @@ N_UNTIMED, N_TIMED = 2, 10
 MSOA_M, MSOA_T, MSOA_RADIUS = 7000, 120, 0.05
 MSOA_TIMED = 5
 WINDOWED_BATCH = (4, 85)  # the windowed evaluator's [L, M, dmax + 1] shape
-K2_REPS = 50
+K2_REPS, K2_COLD_REPS = 50, 21
+FLUSH_BYTES = 256 * 2**20  # written between cold launches: > the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+TF32_OPS_PER_S = 495e12  # H100 SXM dense TF32 on the tensor cores
 # Counted float32 operations per day-cell of a column delta (four binomial
 # log-pmfs with their Stirling terms) and per cell of the rate-only plane
 # delta (two rates, two log(1 - exp(-r)), the difference).
@@ -66,6 +75,37 @@ def card_line():
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_summary(log):
+    """ptxas's registers, shared memory and spills of each kernel in an
+    nvcc log, each under its template arguments (K2's ``<NN>``: 16 NN days
+    a block) where it has any."""
+    parts, name = [], ""
+    for line in log.splitlines():
+        entry = re.search(r"Compiling entry function '(\w+)'", line)
+        if entry:
+            args = re.findall(r"ILi(\d+)E", entry.group(1))
+            name = f"<{','.join(args)}> " if args else ""
+        elif "Used" in line or "spill" in line:
+            parts.append(name + line.split(":", 1)[-1].strip())
+    return " | ".join(parts)
+
+
+def sass_counts(path, ops=("HMMA", "LDGSTS", "LDS", "BAR.SYNC")):
+    """Instructions of a built library by opcode (``cuobjdump -sass``):
+    ``{op: count, "all": count}``, or None where the toolkit has no
+    cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    opcodes = re.findall(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][\w.]*)",
+                         sass)
+    counts = {op: sum(o.startswith(op) for o in opcodes) for op in ops}
+    counts["all"] = len(opcodes)
+    return counts
 
 
 def build_chains(torch, device, M, T, C, seed=0):
@@ -395,19 +435,33 @@ def build_msoa(torch, device, M, T, seed=0):
     return model, ChainState(u=st.u[None], events=st.events[None]), gen
 
 
-def k2_error(torch, values, col_idx, xp, y, bs):
-    """max |y - plain| and max |y - plain| / (|A| @ |x|): the kernel is
-    held elementwise relative to the sum of absolute terms (rows of Cstar
-    sum to about zero, so A x itself cancels)."""
-    plain = bs.bsr_matmul_reference(values, col_idx, xp)
-    scale = bs.bsr_matmul_reference(values.abs(), col_idx, xp.abs())
-    diff = (y - plain).abs()
-    return float(diff.max()), float((diff / (scale + 1e-30)).max())
+def cold_ms(torch, fn, reps, flush):
+    """Median device time of one call of ``fn`` with a cold L2: ``flush``
+    (larger than the 50 MB L2) is written before each call, and CUDA
+    events bracket the call alone."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for start, stop in pairs:
+        flush.add_(1.0)
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    times = sorted(start.elapsed_time(stop) for start, stop in pairs)
+    return times[len(times) // 2]
 
 
 def phase_k2(torch, model, gen):
-    """Phase 4: K2 against its plain version at the MSOA shapes; times the
-    kernel, the plain version and the dense torch.matmul by CUDA events."""
+    """Phase 4: K2 against its plain version at the MSOA shapes, through
+    the main path's call ``Cstar_bsr.matmul`` on an unpadded x: error
+    within 1e-5 of |A| @ |x|, one launch a call, bitwise-equal y over two
+    calls, x unchanged.  Times by CUDA events (a) the kernel alone, warm
+    (K2_REPS back to back), (b) the kernel alone with a cold L2 (median
+    of K2_COLD_REPS), (c) the whole call, warm and cold, the plain
+    version, and at [M, T] the dense torch.matmul of the same function."""
+    from covid19uk_tpu_torch.ops import _build
     from covid19uk_tpu_torch.ops import block_sparse as bs
 
     t0 = time.perf_counter()
@@ -416,49 +470,86 @@ def phase_k2(torch, model, gen):
     R, K, B, _ = values.shape
     Mm, Tt = model.data.num_locations, model.num_steps
     shapes = [(1, Mm, Tt), (WINDOWED_BATCH[0], Mm, WINDOWED_BATCH[1])]
+    flush = torch.empty(FLUSH_BYTES // 4, device="cuda")
     out = {}
     for S, n, t in shapes:
-        tp = -(-t // B) * B
-        xp = torch.zeros((S, R * B, tp), device="cuda")
-        xp[:, :n, :t] = torch.randn((S, n, t), generator=gen, device="cuda")
-        y = bs._launch(values, col_idx, xp)
+        x = torch.randn((S, n, t), generator=gen, device="cuda")
+        x0 = x.clone()
+        before = bs.bsr_matmul.launches
+        y = op.matmul(x)
+        y2 = op.matmul(x)
         torch.cuda.synchronize()
-        err, rel = k2_error(torch, values, col_idx, xp, y, bs)
-        if not rel <= 1e-5:
+        calls = (bs.bsr_matmul.launches - before) / 2
+        plain = bs._plain(values, col_idx, op.perm, op.inv_perm, x)
+        scale = bs._plain(values.abs(), col_idx, op.perm, op.inv_perm,
+                          x.abs())
+        diff = (y - plain).abs()
+        err, rel = float(diff.max()), float((diff / (scale + 1e-30)).max())
+        same, kept = bool(torch.equal(y, y2)), bool(torch.equal(x, x0))
+        if not (rel <= 1e-5 and calls == 1 and same and kept):
             say(f"phase 4 FAILED at x [{S}, {n}, {t}]: error {rel!r} of "
-                f"|A|@|x| (max abs {err!r})")
+                f"|A|@|x| (max abs {err!r}), {calls} launches a call, "
+                f"two calls bitwise equal {same}, x unchanged {kept}")
             raise SystemExit(1)
-        ms = cuda_ms(torch, lambda: bs._launch(values, col_idx, xp), K2_REPS)
-        plain_ms = cuda_ms(
-            torch, lambda: bs.bsr_matmul_reference(values, col_idx, xp),
-            K2_REPS)
-        out[(S, t)] = dict(err=err, rel=rel, ms=ms, plain_ms=plain_ms, xp=xp)
+        # the kernel alone: the main path's arguments, no autograd wrapper
+        def alone():
+            bs._launch(values, col_idx, x, op.perm32, op.slots, op.order)
+
+        out[(S, t)] = dict(
+            err=err, rel=rel,
+            ms=cuda_ms(torch, alone, K2_REPS),
+            cold_ms=cold_ms(torch, alone, K2_COLD_REPS, flush),
+            call_ms=cuda_ms(torch, lambda: op.matmul(x), K2_REPS),
+            call_cold_ms=cold_ms(torch, lambda: op.matmul(x), K2_COLD_REPS,
+                                 flush),
+            plain_ms=cuda_ms(torch, lambda: bs._plain(
+                values, col_idx, op.perm, op.inv_perm, x), K2_REPS),
+            x=x)
+    del flush
     # the library yardstick: the dense product of the same function
     cstar = model.data.Cstar
-    x = out[(1, Tt)]["xp"][0, :Mm, :Tt][op.inv_perm]
+    x = out[(1, Tt)]["x"][0]
     library_ms = cuda_ms(torch, lambda: torch.matmul(cstar, x), K2_REPS)
-    # bound of the main path's call: the populated blocks' operations and
-    # bytes (padded slots and padded columns need no work), x read and y
-    # written once, col_idx read once
-    populated = int((values != 0).flatten(2).any(2).sum())
+    # bounds of the main path's call: the populated blocks' operations and
+    # bytes (padded slots and days need no work), x read and y written
+    # once, col_idx read once; on the CUDA cores one float32 FMA a term,
+    # on the tensor cores three TF32 products a term (3xTF32)
+    held = (values != 0).flatten(2)
+    populated = int(held.any(2).sum())
+    nonzero = float(held.sum()) / (populated * B * B)
     ops = 2.0 * populated * B * B * Tt
     n_bytes = 4 * (populated * B * B + 2 * Mm * Tt + R * K)
-    ops_ms = ops / F32_OPS_PER_S * 1e3
     bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+    f32_ms = ops / F32_OPS_PER_S * 1e3
+    tf32_ms = 3 * ops / TF32_OPS_PER_S * 1e3
+    # the kernel's route: the tensor cores
+    bound_ms = max(bytes_ms, tf32_ms)
+    bound_by = "bytes" if bytes_ms >= tf32_ms else "operations"
     main = out[(1, Tt)]
-    batch = out[(WINDOWED_BATCH[0], WINDOWED_BATCH[1])]
-    say(f"phase 4 K2 vs plain (R={R}, K={K}, {populated} populated blocks of"
-        f" {R * K}): x [{Mm}, {Tt}] error {main['rel']!r} of |A|@|x| (max "
-        f"abs {main['err']!r}), kernel {main['ms']:.4f} ms, plain "
-        f"{main['plain_ms']:.4f} ms, dense torch.matmul {library_ms:.4f} ms,"
-        f" bound {max(ops_ms, bytes_ms):.4f} ms (operations {ops_ms:.4f},"
-        f" bytes {bytes_ms:.4f}); x {list(shapes[1])} error {batch['rel']!r}"
-        f", kernel {batch['ms']:.4f} ms, plain {batch['plain_ms']:.4f} ms "
-        f"({time.perf_counter() - t0:.1f} s)")
-    return dict(err=max(main["err"], batch["err"]), ms=main["ms"],
+    lib = _build.block_sparse_library().lib
+    tile = bs.tile_days(R, 1, Tt, torch.cuda.get_device_properties(
+        0).multi_processor_count)
+    say(f"phase 4 K2 at x [{Mm}, {Tt}]: {tile}-day blocks, "
+        f"{lib.bsr_matmul_shared_bytes(K, tile)} bytes of dynamic shared "
+        f"memory a block; {100 * nonzero:.2f}% of the populated blocks' "
+        f"entries are nonzero")
+    say(f"phase 4 K2 (R={R}, K={K}, {populated} populated blocks of {R * K})"
+        f" bounds at x [{Mm}, {Tt}]: CUDA cores {max(f32_ms, bytes_ms):.4f}"
+        f" ms (operations {f32_ms:.4f}), tensor cores 3xTF32 "
+        f"{max(tf32_ms, bytes_ms):.4f} ms (bytes {bytes_ms:.4f}, operations"
+        f" {tf32_ms:.4f}); this kernel's route: {bound_ms:.4f} ms, "
+        f"{bound_by}; dense torch.matmul {library_ms:.4f} ms")
+    for (S, t), r in out.items():
+        say(f"phase 4 K2 at x [{S}, {Mm}, {t}]: error {r['rel']!r} of "
+            f"|A|@|x| (max abs {r['err']!r}), one launch a call, two calls "
+            f"bitwise equal, x unchanged; kernel alone {r['ms']:.4f} ms "
+            f"warm, {r['cold_ms']:.4f} ms cold L2; whole matmul call "
+            f"{r['call_ms']:.4f} ms warm, {r['call_cold_ms']:.4f} ms cold "
+            f"L2; plain {r['plain_ms']:.4f} ms")
+    say(f"phase 4 done ({time.perf_counter() - t0:.1f} s)")
+    return dict(err=max(r["err"] for r in out.values()), ms=main["ms"],
                 plain_ms=main["plain_ms"], library_ms=library_ms,
-                bound_ms=max(ops_ms, bytes_ms),
-                bound_by="bytes" if bytes_ms >= ops_ms else "operations")
+                bound_ms=bound_ms, bound_by=bound_by)
 
 
 def check_threaded_sweep(torch, model, state, tune, gen):
@@ -587,12 +678,11 @@ def main(argv):
     t1 = time.perf_counter()
     built = _build.build_all()
     for name, b in built.items():
-        ptxas = " | ".join(
-            line.split(":", 1)[-1].strip() for line in b.log.splitlines()
-            if "Used" in line or "spill" in line
-        )
-        say(f"phase 1 nvcc {name} {b.seconds:.1f} s: {ptxas}")
+        say(f"phase 1 nvcc {name} {b.seconds:.1f} s: {ptxas_summary(b.log)}")
     say(f"phase 1 both builds {time.perf_counter() - t1:.1f} s wall")
+    sass = sass_counts(built["block_sparse"].lib._name)
+    say(f"phase 1 block_sparse SASS (cuobjdump -sass, all template "
+        f"instances): {json.dumps(sass) if sass else 'no cuobjdump'}")
 
     model, state, gen = build_chains(torch, "cuda", M, T, C)
     torch.cuda.synchronize()

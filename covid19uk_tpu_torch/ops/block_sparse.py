@@ -9,12 +9,17 @@ Block-ELL keeps, for each of the ``R`` block rows, ``K`` blocks and their
 column-block indices; padded slots are zero blocks at column 0, so they add
 exactly zero and need no masks.
 
-:func:`bsr_matmul` launches the CUDA kernel ``csrc/block_sparse.cu`` for
-tensors on a CUDA device (counted in ``bsr_matmul.launches``) and runs
-:func:`bsr_matmul_reference`, the plain version, for tensors on the CPU.
-The matrix is symmetric, so the gradient with respect to ``x`` is the same
-product applied to the cotangent; ``values`` and ``col_idx`` are constants.
+:func:`bsr_matmul` applies a :class:`BlockSparse` operator.  For tensors on
+a CUDA device it is one launch of the CUDA kernel ``csrc/block_sparse.cu``
+(counted in ``bsr_matmul.launches``), which reads ``x`` and writes ``y``
+through the permutation with no padded copy; for tensors on the CPU it runs
+:func:`_plain`, the plain version (gather, pad, :func:`bsr_matmul_reference`,
+crop, gather).  The matrix is symmetric, so the gradient with respect to
+``x`` is the same product applied to the cotangent; the operator is a
+constant.
 """
+
+import functools
 
 import numpy as np
 import torch
@@ -27,8 +32,8 @@ def _round_up(x, m):
 
 
 def bsr_matmul_reference(values, col_idx, xp):
-    """The plain version: ``values [R, K, B, B]`` gathered by ``col_idx
-    [R, K]`` times padded ``xp [S, R*B, Tp]`` -> ``[S, R*B, Tp]``."""
+    """The plain block-ELL product: ``values [R, K, B, B]`` gathered by
+    ``col_idx [R, K]`` times padded ``xp [S, R*B, Tp]`` -> ``[S, R*B, Tp]``."""
     R, K, B, _ = values.shape
     S, _, Tp = xp.shape
     xb = xp.reshape(S, R, B, Tp)[:, col_idx.long()]  # [S, R, K, B, Tp]
@@ -36,33 +41,86 @@ def bsr_matmul_reference(values, col_idx, xp):
     return y.reshape(S, R * B, Tp)
 
 
-def _launch(values, col_idx, xp):
-    """The CUDA kernel on padded float32 ``xp [S, R*B, Tp]``."""
-    from covid19uk_tpu_torch.ops import _build
+def _plain(values, col_idx, perm, inv_perm, x):
+    """The plain version of the whole product on ``x [S, n, T]``: ``x``
+    gathered through ``perm`` into a zero-padded ``[S, R*B, round_up(T,
+    128)]``, :func:`bsr_matmul_reference`, cropped, gathered back through
+    ``inv_perm``."""
+    R, _, B, _ = values.shape
+    S, n, t = x.shape
+    if perm is not None:
+        x = x[:, perm]
+    xp = x.new_zeros((S, R * B, _round_up(max(t, 1), B)))
+    xp[:, :n, :t] = x
+    y = bsr_matmul_reference(values, col_idx, xp)[:, :n, :t]
+    return y if inv_perm is None else y[:, inv_perm]
 
+
+@functools.cache
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def tile_days(R, S, T, sms):
+    """Days a thread block of the kernel owns: 16, 32, 48 or 64 (each of
+    its two warp columns takes a fixed number of 8-day tiles; days past T
+    are zeros).  Among the widths whose grid of ``2 R S ceil(T / width)``
+    blocks (64 rows each) gives at least two blocks an SM, the one that
+    computes the fewest padded days, the widest of those on a tie; the
+    narrowest when none fills the card."""
+    fills = [w for w in (64, 48, 32, 16) if 2 * R * S * -(-T // w) >= 2 * sms]
+    if not fills:
+        return 16
+    return min(fills, key=lambda w: (-(-T // w) * w, -w))
+
+
+def _kernel_args(values, col_idx, x, perm, slots, order, sms=None):
+    """Checks the kernel's inputs and returns (its C arguments before the
+    stream, the output ``y``, allocated): ``x [S, M, T]`` float32,
+    ``perm [M]``, ``slots [R]``, ``order [R]`` and ``col_idx`` int32, all
+    contiguous on one device; ``sms`` (the device's SM count when None)
+    sets the day tile."""
     R, K, B, _ = values.shape
-    S, rows, Tp = xp.shape
-    if values.dtype != torch.float32 or xp.dtype != torch.float32:
+    if values.dtype != torch.float32 or x.dtype != torch.float32:
         raise ValueError("the block-sparse kernel takes float32 values and x")
-    if col_idx.dtype != torch.int32:
-        raise ValueError("col_idx must be int32")
-    if B != BLOCK or rows != R * B or Tp % 64:
+    for name, t in (("col_idx", col_idx), ("perm", perm), ("slots", slots),
+                    ("order", order)):
+        if t.dtype != torch.int32:
+            raise ValueError(f"{name} must be int32")
+    if (B != BLOCK or x.dim() != 3 or perm.shape != (x.shape[1],)
+            or x.shape[1] > R * B or col_idx.shape != (R, K)
+            or slots.shape != (R,) or order.shape != (R,)):
         raise ValueError(f"bad shapes: values {tuple(values.shape)}, "
-                         f"x {tuple(xp.shape)}")
-    if not (values.is_contiguous() and col_idx.is_contiguous()
-            and xp.is_contiguous()):
-        raise ValueError("values, col_idx and x must be contiguous")
-    devices = {values.device, col_idx.device, xp.device}
+                         f"x {tuple(x.shape)}, perm {tuple(perm.shape)}")
+    tensors = (values, col_idx, x, perm, slots, order)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the block-sparse kernel's inputs must be "
+                         "contiguous")
+    devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"all inputs must be on one device, got {devices}")
+    S, M, T = x.shape
+    if sms is None:
+        sms = _sm_count(x.device)
+    y = torch.empty_like(x)
+    args = (values.data_ptr(), col_idx.data_ptr(), slots.data_ptr(),
+            order.data_ptr(), perm.data_ptr(), x.data_ptr(), y.data_ptr(),
+            R, K, M, S, T, tile_days(R, S, T, sms))
+    return args, y
+
+
+def _launch(values, col_idx, x, perm, slots, order):
+    """The CUDA kernel: ``y [S, M, T]``, row ``perm[r]`` of it the
+    operator's row ``r`` times ``x [S, M, T]`` read through ``perm``; one
+    launch, ``y`` its only allocation."""
+    from covid19uk_tpu_torch.ops import _build
+
+    args, y = _kernel_args(values, col_idx, x, perm, slots, order)
     lib = _build.block_sparse_library().lib
-    y = torch.empty_like(xp)
-    dev = xp.device
+    dev = x.device
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.bsr_matmul_launch(values.data_ptr(), col_idx.data_ptr(),
-                                    xp.data_ptr(), y.data_ptr(), R, K, S, Tp,
-                                    stream)
+        err = lib.bsr_matmul_launch(*args, stream)
     if err != 0:
         raise RuntimeError(
             f"block-sparse kernel launch failed: CUDA error {err} "
@@ -71,41 +129,37 @@ def _launch(values, col_idx, xp):
     return y
 
 
-def _apply(values, col_idx, x):
-    """Pads ``x [..., n, T]`` to ``[S, R*B, round_up(T, 128)]`` (leading
-    dims folded into S), applies the operator and crops back."""
-    R, K, B, _ = values.shape
+def _apply(op, x):
+    """``op``'s product on ``x [..., n, T]`` (leading dims folded into
+    one batch)."""
     lead, n, t = x.shape[:-2], x.shape[-2], x.shape[-1]
-    tp = _round_up(max(t, 1), BLOCK)
-    S = int(np.prod(lead, dtype=np.int64)) if lead else 1
-    xp = x.new_zeros((S, R * B, tp))
-    xp[:, :n, :t] = x.reshape(S, n, t)
+    x3 = x.reshape((-1, n, t))
     if x.device.type == "cpu":
-        y = bsr_matmul_reference(values, col_idx, xp)
+        y = _plain(op.values, op.col_idx, op.perm, op.inv_perm, x3)
     elif x.device.type == "cuda":
-        y = _launch(values, col_idx, xp)
+        y = _launch(op.values, op.col_idx, x3.contiguous(), op.perm32,
+                    op.slots, op.order)
     else:
         raise ValueError(f"no block-sparse product for device {x.device}")
-    return y[:, :n, :t].reshape(lead + (n, t))
+    return y.reshape(lead + (n, t))
 
 
 class _BsrMatmul(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, values, col_idx, x):
-        ctx.save_for_backward(values, col_idx)
-        return _apply(values, col_idx, x)
+    def forward(ctx, x, op):
+        ctx.op = op
+        return _apply(op, x)
 
     @staticmethod
     def backward(ctx, g):
-        values, col_idx = ctx.saved_tensors
         # A is symmetric: A^T g = A g
-        return None, None, _apply(values, col_idx, g.contiguous())
+        return _apply(ctx.op, g.contiguous()), None
 
 
-def bsr_matmul(values, col_idx, x):
-    """``A @ x`` for symmetric block-ELL ``A``; x is ``[M, T]``,
+def bsr_matmul(op, x):
+    """``A @ x`` for a :class:`BlockSparse` ``op``; x is ``[M, T]``,
     ``[S, M, T]`` or more leading dims (folded into one launch)."""
-    return _BsrMatmul.apply(values, col_idx, x)
+    return _BsrMatmul.apply(x, op)
 
 
 bsr_matmul.launches = 0
@@ -115,8 +169,14 @@ class BlockSparse:
     """A symmetric block-sparse (block-ELL) matrix on a device.
 
     ``values [R, K, B, B]`` and ``col_idx [R, K]`` hold ``P A P^T`` for the
-    RCM permutation ``perm`` (``inv_perm`` its inverse): :meth:`matmul`
-    permutes ``x`` in and ``y`` out."""
+    RCM permutation ``perm`` (``inv_perm`` its inverse; None for the
+    identity): :meth:`matmul` permutes ``x`` in and ``y`` out.
+
+    What the kernel needs is derived once, here: ``slots [R]``, the slots
+    to visit in each row (1 + the index of its last slot that holds a
+    nonzero; every slot after it is a zero block, so skipping it adds
+    exactly nothing), ``order [R]``, the rows longest first, and
+    ``perm32``, ``perm`` as int32."""
 
     def __init__(self, values, col_idx, n, perm=None, inv_perm=None):
         self.values = values
@@ -124,6 +184,15 @@ class BlockSparse:
         self.n = n
         self.perm = perm
         self.inv_perm = inv_perm
+        R, K = col_idx.shape
+        held = values.reshape(R, K, -1).ne(0).any(2)
+        upto = torch.arange(1, K + 1, dtype=torch.int32,
+                            device=values.device)
+        self.slots = (held * upto).amax(1).to(torch.int32)
+        self.order = torch.argsort(self.slots, descending=True,
+                                   stable=True).to(torch.int32)
+        self.perm32 = (torch.arange(n, device=values.device) if perm is None
+                       else perm).to(torch.int32)
 
     @property
     def block_density(self):
@@ -180,12 +249,7 @@ class BlockSparse:
 
     def matmul(self, x):
         """``A @ x`` for ``x`` of shape ``[..., M, T]``."""
-        if self.perm is not None:
-            x = x[..., self.perm, :]
-        y = bsr_matmul(self.values, self.col_idx, x)
-        if self.inv_perm is not None:
-            y = y[..., self.inv_perm, :]
-        return y
+        return bsr_matmul(self, x)
 
     def todense(self):
         """Dense ``[n, n]`` numpy reconstruction (tests, debugging)."""

@@ -16,7 +16,10 @@ transition of each hand kernel (K1 ``fused_sweep_kernel``, K2
 ``<out_dir>/profile_<name>.txt``.  Then K1 alone at chip_smoke.py phase
 2's inputs, built with its per-phase cycle counters (-DK1_PHASES): one
 line with each phase's share of thread 0's clock64 cycles, the mean over
-the 64 blocks, and the cycles of a launch.  Exits non-zero without a card.
+the 64 blocks, and the cycles of a launch.  Last, K2 at chip_smoke.py
+phase 4's shapes beside two builds that do one part of its work alone
+(-DK2_COPIES_ONLY, -DK2_PRODUCTS_ONLY): one line of their times.  Exits
+non-zero without a card.
 """
 
 import ctypes
@@ -41,6 +44,9 @@ K1_PHASES = (
     "occult S->E apply", "occult E->I apply",
 )
 K1_PHASE_BLOCKS = 1024  # kPhaseBlocks
+# K2 built to do one part of its work alone (csrc/block_sparse.cu)
+K2_PARTS = {"copies alone": "K2_COPIES_ONLY",
+            "products alone": "K2_PRODUCTS_ONLY"}
 
 
 def profile_steps(torch, step, state, tune, gen):
@@ -128,6 +134,35 @@ def k1_phases(torch, cs, model, state, gen):
     )), flush=True)
 
 
+def k2_parts(torch, cs, model, gen):
+    """K2 at chip_smoke.py phase 4's shapes, beside its two one-part
+    builds (the copies alone, the products alone): one JSON line of each
+    one's device ms, CUDA events over K2_REPS launches."""
+    from covid19uk_tpu_torch.ops import _build
+    from covid19uk_tpu_torch.ops import block_sparse as bs
+
+    libs = {"whole kernel": _build.block_sparse_library().lib}
+    for part, define in K2_PARTS.items():
+        libs[part] = _build.bind_block_sparse(
+            _build.build("block_sparse", (define,)).lib)
+    op = model.data.Cstar_bsr
+    Mm, stream = model.data.num_locations, torch.cuda.current_stream()
+    ms = {}
+    for S, T in ((1, model.num_steps), cs.WINDOWED_BATCH):
+        x = torch.randn((S, Mm, T), generator=gen, device="cuda")
+        args, _y = bs._kernel_args(op.values, op.col_idx, x, op.perm32,
+                                   op.slots, op.order)
+
+        def launch(lib):
+            if lib.bsr_matmul_launch(*args, stream.cuda_stream) != 0:
+                raise RuntimeError("bsr_matmul launch failed")
+
+        ms[f"[{S}, {Mm}, {T}]"] = {
+            name: cs.cuda_ms(torch, lambda: launch(lib), cs.K2_REPS)
+            for name, lib in libs.items()}
+    print(json.dumps(dict(config="k2_parts_msoa_m7000", ms=ms)), flush=True)
+
+
 def main(argv):
     import torch
 
@@ -162,6 +197,7 @@ def main(argv):
                                                 device="cuda"))
     summarize(torch, *profile_steps(torch, step, state, tune, gen),
               "msoa_m7000_c1", out_dir)
+    k2_parts(torch, cs, model, gen)
     return 0
 
 

@@ -3,9 +3,10 @@
 // block at a time; __syncthreads() and the warp shuffles are
 // std::barrier's.  __shared__ variables become statics, shared by the
 // block's threads.  cp.async (cuda_pipeline_primitives.h beside this
-// file) is a synchronous copy.  A barrier that not every thread reaches
-// hangs, as on the card: the test runs the kernel in a child process with
-// a timeout.
+// file, and the PTX wrappers below) is a synchronous copy; mma.sync is a
+// warp-wide exchange through a per-warp array.  A barrier that not every
+// thread reaches hangs, as on the card: the test runs the kernel in a
+// child process with a timeout.
 // Only the features the port's kernels use are provided.
 #pragma once
 #include <algorithm>
@@ -22,10 +23,13 @@
 #define __host__
 #define __forceinline__ inline
 #define __shared__ static
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __grid_constant__
 #define __align__(n) __attribute__((aligned(n)))
 
+struct float2 {
+  float x, y;
+};
 struct float4 {
   float x, y, z, w;
 };
@@ -84,6 +88,79 @@ inline unsigned __ballot_sync(unsigned, int pred) {
 }
 
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+
+inline float __uint_as_float(unsigned u) {
+  float f;
+  std::memcpy(&f, &u, sizeof(f));
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned u;
+  std::memcpy(&u, &f, sizeof(u));
+  return u;
+}
+
+// The PTX instructions that csrc/block_sparse.cu wraps in functions of its
+// own (it declares them for host compilers and defines them for the card).
+
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a * b for the
+// warp: each lane deposits its fragments, the warp meets, and each lane
+// computes its own four outputs.  Fragments as in the PTX ISA, with
+// g = lane / 4 and tig = lane % 4: A (16 x 8) a0 = (g, tig), a1 = (g + 8,
+// tig), a2 = (g, tig + 4), a3 = (g + 8, tig + 4); B (8 x 8) b0 = (tig, g),
+// b1 = (tig + 4, g); D (16 x 8) d0, d1 = (g, 2 tig + {0, 1}), d2, d3 =
+// (g + 8, 2 tig + {0, 1}).  The tensor core reads the top 19 bits of each
+// operand; the eight products are summed exactly (double) and added to d
+// with one rounding.  Two arrays a warp, used in turn, so that one
+// barrier a call keeps a lane from overwriting what another still reads.
+inline unsigned emu_mma_a[32][2][32][4];
+inline unsigned emu_mma_b[32][2][32][2];
+inline thread_local int emu_mma_turn;
+
+inline double emu_tf32_value(unsigned bits) {
+  bits &= 0xffffe000u;
+  float f;
+  std::memcpy(&f, &bits, sizeof(f));
+  return f;
+}
+
+inline void mma_tf32(float (&d)[4], const unsigned (&a)[4],
+                     const unsigned (&b)[2]) {
+  const int w = emu_thread_idx.x >> 5, lane = emu_thread_idx.x & 31;
+  const int turn = emu_mma_turn;
+  emu_mma_turn ^= 1;
+  for (int k = 0; k < 4; ++k) emu_mma_a[w][turn][lane][k] = a[k];
+  for (int k = 0; k < 2; ++k) emu_mma_b[w][turn][lane][k] = b[k];
+  emu_warp_barrier[w]->arrive_and_wait();
+  const auto A = [&](int row, int col) {  // lane, then register
+    return emu_tf32_value(emu_mma_a[w][turn][(row % 8) * 4 + col % 4]
+                                    [row / 8 + 2 * (col / 4)]);
+  };
+  const auto B = [&](int k, int n) {
+    return emu_tf32_value(emu_mma_b[w][turn][n * 4 + k % 4][k / 4]);
+  };
+  const int g = lane / 4, tig = lane % 4;
+  for (int h = 0; h < 2; ++h)
+    for (int e = 0; e < 2; ++e) {
+      double sum = 0.0;
+      for (int k = 0; k < 8; ++k) sum += A(g + 8 * h, k) * B(k, 2 * tig + e);
+      d[2 * h + e] = static_cast<float>(d[2 * h + e] + sum);
+    }
+}
+
+// cp.async.cg (16 bytes) and cp.async.ca (4 bytes) with a source size:
+// the first src_bytes copied now, the rest of the destination zeroed
+inline void cp_async16(void* dst, const void* src, int src_bytes) {
+  std::memcpy(dst, src, src_bytes);
+  std::memset(static_cast<char*>(dst) + src_bytes, 0, 16 - src_bytes);
+}
+inline void cp_async4(void* dst, const void* src, int src_bytes) {
+  std::memcpy(dst, src, src_bytes);
+  std::memset(static_cast<char*>(dst) + src_bytes, 0, 4 - src_bytes);
+}
+inline void cp_async_commit() {}
+template <int N>
+inline void cp_async_wait() {}
 
 typedef int cudaError_t;
 enum {

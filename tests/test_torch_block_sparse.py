@@ -12,6 +12,8 @@ rtol 2e-3 and atol 1e-3: the dense and block-sparse products round
 differently).
 """
 
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,7 +125,48 @@ def test_wrapper_counts_no_launch_on_the_cpu():
     tb.matmul(torch.ones(200, 5))
     assert tbs.bsr_matmul.launches == before
     with pytest.raises(ValueError):
-        tbs._launch(tb.values, tb.col_idx.long(), torch.zeros(1, 256, 128))
+        tbs._launch(tb.values, tb.col_idx.long(), torch.zeros(1, 200, 5),
+                    tb.perm32, tb.slots, tb.order)
+
+
+def test_derived_fields_match_between_builds():
+    """The kernel's fields derived in the constructor (slots to visit,
+    rows longest first, int32 perm) agree between from_dense and the
+    operator carried over from the JAX package, and follow from the
+    packing: every slot past a row's count is a zero block, the slot
+    before it is not, and the rows run longest first, ties in row order.
+    One block row zeroed: its count is 0."""
+    cstar = _gravity_cstar(700, radius_frac=0.05).astype(np.float32)
+    jb = JBlockSparse.from_dense(cstar, jnp.float32)
+    tb = tbs.BlockSparse.from_dense(cstar, torch.float32, device="cpu")
+    data = types.SimpleNamespace(
+        **{f: np.zeros(1) for f in tspec.ModelData._fields[:8]},
+        Cstar_bsr=jb, car_band=None)
+    cb = convert.model_data(data, "cpu").Cstar_bsr
+    for f in ("slots", "order", "perm32"):
+        got, want = getattr(cb, f), getattr(tb, f)
+        assert got.dtype == want.dtype == torch.int32, f
+        assert torch.equal(got, want), f
+    assert torch.equal(tb.perm32, tb.perm.int())
+    vals, slots = tb.values.numpy(), tb.slots.numpy()
+    R, K = tb.col_idx.shape
+    held = np.abs(vals).reshape(R, K, -1).max(2) > 0
+    for i in range(R):
+        assert not held[i, slots[i]:].any()
+        assert slots[i] == 0 or held[i, slots[i] - 1]
+    assert len(set(slots)) > 1, "every row has the same slot count"
+    order = tb.order.numpy()
+    assert sorted(order) == list(range(R))
+    assert all((-slots[a], a) < (-slots[b], b)
+               for a, b in zip(order, order[1:]))
+    zeroed = tbs.BlockSparse(tb.values.clone(), tb.col_idx, tb.n, tb.perm,
+                             tb.inv_perm)
+    zeroed.values[1] = 0.0
+    zeroed = tbs.BlockSparse(zeroed.values, tb.col_idx, tb.n, tb.perm,
+                             tb.inv_perm)
+    assert int(zeroed.slots[1]) == 0 and int(zeroed.order[-1]) == 1
+    ident = tbs.BlockSparse(tb.values, tb.col_idx, tb.n)
+    assert torch.equal(ident.perm32, torch.arange(tb.n, dtype=torch.int32))
 
 
 def test_auto_gates_match_jax():

@@ -73,37 +73,56 @@ def test_cuda_fused_sweep_matches_plain_version(guided, mmax):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("lead", [(), (3,)])
-def test_cuda_block_sparse_matches_plain_version(lead):
+@pytest.mark.parametrize("lead, T, zero_row", [
+    ((), 37, None), ((3,), 37, None),
+    ((4,), 85, None),  # the windowed batch's shape of days
+    ((), 37, 2),  # one block row of zero blocks
+])
+def test_cuda_block_sparse_matches_plain_version(lead, T, zero_row):
     """K2 on the card against its plain version on the same inputs, within
-    1e-5 of |A| @ |x| (float32 sums in another order), and its gradient
-    through the autograd wrapper (one more launch)."""
+    1e-5 of |A| @ |x| (float32 sums in another order, 3xTF32 products):
+    one launch a matmul call, bitwise-equal y over two calls, x unchanged,
+    zero rows for a block row of zero blocks; and its gradient through the
+    autograd wrapper (one more launch)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
     from covid19uk_tpu_torch.ops import block_sparse as bs
 
-    M, T = 1100, 37
+    M = 1100
     model = synthetic.build_synthetic_model(M, T, torch.float32, sparse=True,
                                             radius_frac=0.05, device="cuda")
     op = model.data.Cstar_bsr
+    if zero_row is not None:
+        values = op.values.clone()
+        values[zero_row] = 0.0
+        op = bs.BlockSparse(values, op.col_idx, op.n, op.perm, op.inv_perm)
+        assert int(op.slots[zero_row]) == 0
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(lead + (M, T), generator=gen, device="cuda",
                     requires_grad=True)
+    x0 = x.detach().clone()
     before = bs.bsr_matmul.launches
     y = op.matmul(x)
+    y2 = op.matmul(x.detach())
     torch.cuda.synchronize()
-    assert bs.bsr_matmul.launches == before + 1
-    xp = x.detach()[..., op.perm, :]
-    want = (bs.bsr_matmul_reference(
-        op.values, op.col_idx, torch.nn.functional.pad(
-            xp.reshape((-1, M, T)), (0, 128 - T, 0, op.values.shape[0] * 128
-                                     - M)))[:, :M, :T]
-        .reshape(lead + (M, T)))[..., op.inv_perm, :]
-    scale = abs(op.todense()) @ x.detach().abs().cpu().numpy()
-    err = ((y.detach() - want).abs().cpu().numpy() / (scale + 1e-30)).max()
-    assert err <= 1e-5, err
-    (g,) = torch.autograd.grad(y.sum(), x)
     assert bs.bsr_matmul.launches == before + 2
+    assert torch.equal(y.detach(), y2)
+    assert torch.equal(x.detach(), x0)
+
+    def plain(values, v):
+        return bs._plain(values, op.col_idx, op.perm, op.inv_perm,
+                         v.reshape((-1, M, T))).reshape(lead + (M, T))
+
+    want = plain(op.values, x.detach())
+    scale = plain(op.values.abs(), x.detach().abs())
+    err = float(((y.detach() - want).abs() / (scale + 1e-30)).max())
+    assert err <= 1e-5, err
+    if zero_row is not None:
+        rows = op.perm[zero_row * bs.BLOCK:(zero_row + 1) * bs.BLOCK]
+        assert bool((y.detach()[..., rows, :] == 0).all())
+        return
+    (g,) = torch.autograd.grad(y.sum(), x)
+    assert bs.bsr_matmul.launches == before + 3
     dense = op.todense().astype("float64")
     g_err = (g.cpu().numpy() - dense.sum(axis=0)[:, None]) / (
         abs(dense).sum(axis=0)[:, None])

@@ -56,10 +56,10 @@ CASES = {
 
 
 def _emulated_source(text):
-    text = re.sub(r"extern __shared__ float (\w+)\[\];",
-                  r"static float \1[1 << 16];", text)
+    text = re.sub(r"extern __shared__ (?:__align__\(\d+\) )?float (\w+)\[\];",
+                  r"alignas(16) static float \1[1 << 16];", text)
     text, n = re.subn(
-        r"(\w+)<<<([^,]+), ([^,]+), .*?>>>\((\w+)\);",
+        r"(\w+(?:<\w+>)?)<<<([^,]+), ([^,]+), .*?>>>\((\w+)\);",
         r"(void)stream; emu_launch(\1, \2, \3, \4);", text)
     assert n == 1, "kernel launch not found"
     return text
@@ -270,46 +270,86 @@ def test_emulated_kernel_matches_plain_version(emulated, case):
 
 
 BSR_CASES = {
-    # name: (M, T, S, seed); M not a multiple of 128, T over one tile
-    "one_row_strip": (100, 24, 1, 0),
-    "batched": (300, 40, 3, 1),
-    "two_t_tiles": (260, 130, 2, 2),
+    # name: (M, T, S, seed, options); M not a multiple of 128.  Options:
+    # sms (the SM count the day tile is chosen for, default 4), zero_row
+    # (block row whose values are zeroed), identity (no permutation),
+    # misaligned (x 4 bytes off 16-byte alignment)
+    "one_row_strip": (100, 24, 1, 0, {}),
+    "batched": (300, 40, 3, 1, {}),
+    # three 48-day tiles, the last holding 34 days
+    "two_t_tiles": (260, 130, 2, 2, dict(sms=1)),
+    # rows of 2, 3 and 2 slots, visited longest first; 64-day tiles
+    "slot_counts": (300, 128, 1, 3, dict(sms=1)),
+    # a block row of zero blocks gives zero rows (slots 0)
+    "zero_row": (330, 20, 1, 4, dict(zero_row=1)),
+    # T % 4 != 0: 4-byte copies of x
+    "odd_t": (300, 85, 1, 5, {}),
+    # fewer days than one 8-day tile
+    "short_t": (300, 5, 2, 6, {}),
+    # no permutation, and x off 16-byte alignment with T % 4 == 0
+    "identity_misaligned": (300, 32, 2, 7, dict(identity=True,
+                                                misaligned=True)),
 }
 
 
 def _bsr_child(so_path, case):
-    """Runs in a child process: emulated K2 vs its plain version."""
+    """Runs in a child process: emulated K2 vs the CPU BlockSparse.matmul
+    (the plain route) on x [S, M, T]."""
     from covid19uk_tpu_torch.ops import block_sparse as bs
 
-    M, T, S, seed = BSR_CASES[case]
+    M, T, S, seed, opt = BSR_CASES[case]
     model = synthetic.build_synthetic_model(M, T, torch.float32,
                                             sparse=True, device="cpu")
     op = model.data.Cstar_bsr
-    R = op.values.shape[0]
+    if "zero_row" in opt:
+        values = op.values.clone()
+        values[opt["zero_row"]] = 0.0
+        op = bs.BlockSparse(values, op.col_idx, op.n, op.perm, op.inv_perm)
+    if opt.get("identity"):
+        op = bs.BlockSparse(op.values, op.col_idx, op.n)
     gen = torch.Generator().manual_seed(seed)
-    xp = torch.zeros((S, R * bs.BLOCK, -(-T // 128) * 128))
-    xp[:, :M, :T] = torch.randn((S, M, T), generator=gen)
+    x = torch.randn((S, M, T), generator=gen)
+    if opt.get("misaligned"):
+        buf = torch.empty(S * M * T + 4)
+        x = buf[1:1 + S * M * T].view(S, M, T).copy_(x)
+    x0 = x.clone()
     lib = _build.bind_block_sparse(ctypes.CDLL(so_path))
-    y = torch.empty_like(xp)
-    err = lib.bsr_matmul_launch(op.values.data_ptr(), op.col_idx.data_ptr(),
-                                xp.data_ptr(), y.data_ptr(), R,
-                                op.values.shape[1], S, xp.shape[2], None)
+    args, y = bs._kernel_args(op.values, op.col_idx, x, op.perm32, op.slots,
+                              op.order, sms=opt.get("sms", 4))
+    err = lib.bsr_matmul_launch(*args, None)
     assert err == 0
-    want = bs.bsr_matmul_reference(op.values, op.col_idx, xp)
-    gathered = xp.reshape(S, R, bs.BLOCK, -1)[:, op.col_idx.long()]
-    scale = torch.einsum("rkij,srkjt->srit", op.values.abs(),
-                         gathered.abs()).reshape(want.shape)
+    want = op.matmul(x)
+    scale = bs._plain(op.values.abs(), op.col_idx, op.perm, op.inv_perm,
+                      x.abs())
+    rows = None
+    if "zero_row" in opt:
+        r = opt["zero_row"] * bs.BLOCK
+        rows = op.perm[r:min(r + bs.BLOCK, M)]
     print(json.dumps(dict(
         rel_err=float(((y - want).abs() / (scale + 1e-30)).max()),
         nonzero=int((want != 0).sum()),
-        padded_zero=bool((y[:, M:] == 0).all()),
+        x_unchanged=bool(torch.equal(x, x0)),
+        slots=op.slots.tolist(),
+        order=op.order.tolist(),
+        tile_days=args[-1],
+        vec=T % 4 == 0 and x.data_ptr() % 16 == 0,
+        zero_rows=None if rows is None else bool((y[:, rows] == 0).all()),
     )))
 
 
 @pytest.mark.parametrize("case", sorted(BSR_CASES))
 def test_emulated_block_sparse_matches_plain_version(emulated, case):
-    """K2's source on CPU threads against bsr_matmul_reference, within
-    1e-5 of |A| @ |x| (float32 sums in another order)."""
+    """K2's source on CPU threads against the CPU BlockSparse.matmul,
+    within 1e-5 of |A| @ |x| (float32 sums in another order, 3xTF32
+    products); the caller's x is left as it was."""
     r = _run_child("_bsr_child", emulated("block_sparse"), case)
     assert r["rel_err"] <= 1e-5, r
-    assert r["nonzero"] > 0 and r["padded_zero"], r
+    assert r["nonzero"] > 0 and r["x_unchanged"], r
+    opt = BSR_CASES[case][-1]
+    if case == "slot_counts":
+        assert len(set(r["slots"])) > 1 and r["tile_days"] == 64, r
+        assert r["order"][0] == r["slots"].index(max(r["slots"])), r
+    if "zero_row" in opt:
+        assert r["slots"][opt["zero_row"]] == 0 and r["zero_rows"], r
+    if case in ("odd_t", "identity_misaligned"):
+        assert not r["vec"], r

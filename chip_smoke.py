@@ -2,7 +2,7 @@
 """Runs the PyTorch/CUDA port (covid19uk_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # on a machine with a card
-    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3 and 5, exits 3
+    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5, 6, 7; exits 3
 
 Phases, one short line each:
   0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
@@ -31,9 +31,22 @@ Phases, one short line each:
      with the block-sparse commute and the banded CAR prior, one chain,
      2 untimed + 5 timed transitions of the unfused sweep with threaded
      commute and pair moves; invariants, one K2 launch per transition, and
-     the threaded commute against a fresh product checked.
-Then the kernels' JSON line and, last, the result line.  Any failure
-exits non-zero, as does a run without a CUDA device.
+     the threaded commute against a fresh product checked;
+  6. the MCMC driver at UK width (run_mcmc: warmup windows 20, 5, 10 and
+     10, then 2 bursts of 10 draws, thin 5, autotune and pooled adaptation
+     on, the mcmc CLI's event kernels with the fused sweep) on phase 3's
+     64 chains, into an in-memory posterior (the card's machine has no
+     h5py): one K1 launch per transition (65), final-window HMC
+     acceptance in (0, 1], pooled step sizes equal, finite positive step
+     sizes and mass, stored samples [4, 64, ...] of non-negative integer
+     events; each window's and burst's draws/sec and ms/transition, the
+     bursts' host copy, the diagnostics event;
+  7. the driver at MSOA width (phase 5's model and chain, windows 10, 4
+     and 6, one burst of 5 draws): one K2 launch per transition (25),
+     final-window HMC acceptance above 0; the same lines.
+Then the kernels' JSON line (launches: phases 6 and 7) and, last, the
+result line.  Any failure exits non-zero, as does a run without a CUDA
+device.
 """
 
 import faulthandler
@@ -43,7 +56,10 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
+
+import numpy as np
 
 M, T, C = 380, 120, 64  # full-UK scale (bench.py), 64 chains
 TINY = dict(M=12, T=20, C=2)  # --rehearse
@@ -52,6 +68,11 @@ N_UNTIMED, N_TIMED = 2, 10
 MSOA_M, MSOA_T, MSOA_RADIUS = 7000, 120, 0.05
 MSOA_TIMED = 5
 WINDOWED_BATCH = (4, 85)  # the windowed evaluator's [L, M, dmax + 1] shape
+# the driver phases: warmup windows, bursts x draws, thin
+UK_DRIVER = (dict(first_window=20, slow_window=5, num_slow_windows=2,
+                  last_window=10), 2, 10, 5)
+MSOA_DRIVER = (dict(first_window=10, slow_window=4, num_slow_windows=1,
+                    last_window=6), 1, 5, 1)
 K2_REPS, K2_COLD_REPS = 50, 21
 FLUSH_BYTES = 256 * 2**20  # written between cold launches: > the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -634,7 +655,8 @@ def phase_msoa(torch, model, state, gen, timed, card=""):
 
 
 def rehearse_msoa(torch):
-    """The MSOA path on the CPU at a tiny size (operators forced)."""
+    """The MSOA path and its driver on the CPU at a tiny size (operators
+    forced)."""
     from covid19uk_tpu_torch.inference.gibbs import ChainState
     from covid19uk_tpu_torch.utils.synthetic import (
         build_synthetic_model, initial_chain_state)
@@ -646,6 +668,142 @@ def rehearse_msoa(torch):
     st = initial_chain_state(model, gen)
     state = ChainState(u=st.u[None], events=st.events[None])
     phase_msoa(torch, model, state, gen, timed=2)
+    phase_driver(torch, 7, model, state, msoa_config(model.num_steps),
+                 MSOA_DRIVER, "bsr_matmul")
+
+
+class MemoryPosterior:
+    """The posterior store's interface (``write_samples``,
+    ``write_results``, ``truncate``, ``__getitem__``, ``create_dataset``)
+    over numpy arrays in memory, for ``run_mcmc`` where h5py is absent."""
+
+    def __init__(self):
+        self.data = {}
+
+    def _write(self, group, d, offset):
+        for k, v in d.items():
+            name = f"{group}/{k}"
+            if isinstance(v, dict):
+                self._write(name, v, offset)
+                continue
+            v = np.asarray(v)
+            end = offset + v.shape[0]
+            have = self.data.get(name, np.zeros((0,) + v.shape[1:], v.dtype))
+            if have.shape[0] < end:
+                grow = np.zeros((end - have.shape[0],) + v.shape[1:], v.dtype)
+                have = np.concatenate([have, grow])
+            have[offset:end] = v
+            self.data[name] = have
+
+    def write_samples(self, sample_dict, first_dim_offset):
+        self._write("samples", sample_dict, first_dim_offset)
+
+    def write_results(self, results_dict, first_dim_offset):
+        self._write("results", results_dict, first_dim_offset)
+
+    def truncate(self, num_draws):
+        for k in self.data:
+            if k.startswith(("samples/", "results/")):
+                self.data[k] = self.data[k][:num_draws]
+
+    def __getitem__(self, key):
+        return self.data[key]
+
+    def create_dataset(self, name, data):
+        self.data[name] = np.asarray(data)
+
+
+def uk_driver_config(T):
+    """The mcmc CLI's event kernels for the UK driver phase, fused sweep
+    on (bench.py's setting); occults in the last 21 days (all days at a
+    rehearsal's T < 21)."""
+    from covid19uk_tpu_torch.config import McmcConfig
+    from covid19uk_tpu_torch.inference.driver import event_kernel_config
+
+    cfg = event_kernel_config(McmcConfig(fused_sweep="always"), T)
+    return cfg._replace(t_range=(max(0, T - 21), T))
+
+
+def phase_driver(torch, phase, model, state, ecfg, plan, kernel, card=""):
+    """Phases 6 and 7: ``run_mcmc`` into a :class:`MemoryPosterior` with
+    ``plan = (warmup windows, bursts, draws a burst, thin)``, store_warmup
+    off; the kernel's launch count set to 0 just before and read just
+    after.  Checks one launch of ``kernel`` per transition (on the card),
+    final-window HMC acceptance in (0, 1], the pooled step sizes equal,
+    every adapted step size and mass finite and positive, the stored
+    samples' shapes and non-negative integer events.  Returns (launches,
+    transitions)."""
+    from covid19uk_tpu_torch.inference.driver import run_mcmc
+    from covid19uk_tpu_torch.inference.warmup import WarmupSchedule
+
+    warmup, bursts, draws, thin = plan
+    C = state.u.shape[0]
+    dev = state.u.device
+    transitions = WarmupSchedule(**warmup).total + bursts * draws
+    store = MemoryPosterior()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        log_file = os.path.join(tmp, "run_log.jsonl")
+        cfg = dict(num_chains=C, num_bursts=bursts, num_burst_samples=draws,
+                   thin=thin, store_warmup=False, warmup=warmup,
+                   autotune_acceptance=True, pooled_adaptation=True,
+                   log_file=log_file)
+        reset_launches()
+        run_mcmc(model, state, ecfg, cfg, store, num_chains=C, seed=0,
+                 device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        launches = read_launches()[kernel]
+        with open(log_file) as f:
+            events = [json.loads(line) for line in f]
+    wall = time.perf_counter() - t0
+    windows = [e for e in events if e["event"] == "window"]
+    for e in windows + [e for e in events if e["event"] == "burst"]:
+        name = e.get("name", "burst")
+        copy = (f", host copy {e['copy_ms']!r} ms" if "copy_ms" in e
+                else "")
+        say(f"phase {phase} {name} {e['draws']} draws: "
+            f"{e['draws'] * C / e['wall_s']!r} draws/sec, "
+            f"{e['wall_s'] / e['draws'] * 1e3!r} ms/transition, HMC "
+            f"acceptance {e['hmc_accept']}{copy}")
+    final = windows[-1]
+    say(f"phase {phase} final step size {final['adapted_step_size_min']!r} "
+        f"to {final['adapted_step_size_max']!r} over {C} chains, mass "
+        f"{final['inv_mass_min']!r} to {final['inv_mass_max']!r}")
+    stored = bursts * draws // thin
+    diag = [e for e in events if e["event"] == "diagnostics"][0]
+    say(f"phase {phase} diagnostics over the {stored} stored draws of {C} "
+        f"chains ({bursts * draws} sampled, thin {thin}; not a benchmark "
+        f"figure): {json.dumps(diag)}")
+    M, T = model.data.num_locations, model.num_steps
+    chains = () if C == 1 else (C,)
+    ev = store["samples/seir"]
+    problems = []
+    if dev.type == "cuda" and launches != transitions:
+        problems.append(f"{kernel} launched {launches} times in "
+                        f"{transitions} transitions")
+    if not 0.0 < final["hmc_accept"] <= 1.0:
+        problems.append(f"final-window HMC acceptance {final['hmc_accept']}")
+    for e in windows:
+        lo, hi = e["adapted_step_size_min"], e["adapted_step_size_max"]
+        if not (np.isfinite([lo, hi]).all() and lo > 0):
+            problems.append(f"step size {lo!r}..{hi!r} after a window")
+        if e is not final and C > 1 and lo != hi:
+            problems.append(f"pooled step sizes differ: {lo!r}..{hi!r}")
+        if not (np.isfinite(e["inv_mass_max"]) and e["inv_mass_min"] > 0):
+            problems.append(f"mass {e['inv_mass_min']!r}.."
+                            f"{e['inv_mass_max']!r}")
+    if ev.shape != (stored,) + chains + (M, T, 3) or store[
+            "samples/psi"].shape != (stored,) + chains:
+        problems.append(f"stored samples {ev.shape}")
+    if not ((ev >= 0).all() and (ev == np.round(ev)).all()):
+        problems.append("stored events are not non-negative integers")
+    if problems:
+        raise AssertionError(f"phase {phase}: " + "; ".join(problems))
+    say(f"phase {phase} driver on {card or 'the CPU'} (M={M}, T={T}, {C} "
+        f"chains): {transitions} transitions, {kernel} launches "
+        f"{launches}, stored {ev.shape} ({wall:.1f} s)")
+    return launches, transitions
 
 
 def main(argv):
@@ -666,6 +824,8 @@ def main(argv):
             " skipped, no result line)")
         model, state, gen = build_chains(torch, "cpu", **TINY)
         phase_slice(torch, model, state, gen, timed=2)
+        phase_driver(torch, 6, model, state, uk_driver_config(TINY["T"]),
+                     UK_DRIVER, "fused_sweep")
         rehearse_msoa(torch)
         return 3
 
@@ -688,9 +848,12 @@ def main(argv):
     torch.cuda.synchronize()
     say(f"model and {C} chains on the card ({time.perf_counter() - t0:.1f} s)")
     k1 = phase_kernel(torch, model, state, gen)
-    ms, k1_launches = phase_slice(torch, model, state, gen, N_TIMED, card)
+    ms, _ = phase_slice(torch, model, state, gen, N_TIMED, card)
     say(f"breakdown: HMC density value+grad {grad_ms(torch, model, state):.3f}"
         f" ms (x17 per transition), fused sweep {k1['ms']:.3f} ms")
+    k1_launches, uk_transitions = phase_driver(
+        torch, 6, model, state, uk_driver_config(T), UK_DRIVER,
+        "fused_sweep", card)
     del model, state
 
     t1 = time.perf_counter()
@@ -702,9 +865,12 @@ def main(argv):
         f"{tuple(msoa.data.car_band.diag.shape)} "
         f"({time.perf_counter() - t1:.1f} s)")
     k2 = phase_k2(torch, msoa, mgen)
-    msoa_ms, k2_launches, breakdown = phase_msoa(torch, msoa, mstate, mgen,
-                                                 MSOA_TIMED, card)
+    msoa_ms, _, breakdown = phase_msoa(torch, msoa, mstate, mgen,
+                                       MSOA_TIMED, card)
     say(f"{breakdown}, K2 {k2['ms']:.4f} ms")
+    k2_launches, msoa_transitions = phase_driver(
+        torch, 7, msoa, mstate, msoa_config(MSOA_T), MSOA_DRIVER,
+        "bsr_matmul", card)
 
     kernels = [
         dict(name="fused_sweep", route="cuda",
@@ -721,8 +887,10 @@ def main(argv):
              bound_by=k2["bound_by"], library_ms=k2["library_ms"]),
     ]
     say(f"{ms:.3f} ms per transition at M={M}, C={C}; {msoa_ms:.3f} ms per "
-        f"transition at M={MSOA_M}, one chain; on {card}; wall "
-        f"{time.perf_counter() - t0:.1f} s")
+        f"transition at M={MSOA_M}, one chain; driver launches: K1 "
+        f"{k1_launches / uk_transitions:g} per UK transition, K2 "
+        f"{k2_launches / msoa_transitions:g} per MSOA transition; on {card};"
+        f" wall {time.perf_counter() - t0:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -141,6 +141,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import covid19uk_tpu_torch.ops.banded\n"
         "import covid19uk_tpu_torch.ops.block_sparse\n"
         "import covid19uk_tpu_torch.utils.synthetic\n"
+        "import covid19uk_tpu_torch.config\n"
+        "import covid19uk_tpu_torch.inference.dual_averaging\n"
+        "import covid19uk_tpu_torch.inference.welford\n"
+        "import covid19uk_tpu_torch.inference.warmup\n"
+        "import covid19uk_tpu_torch.inference.driver\n"
+        "import covid19uk_tpu_torch.inference.inference\n"
+        "import covid19uk_tpu_torch.parallel.diagnostics\n"
+        "import covid19uk_tpu_torch.utils.checkpoint\n"
+        "import covid19uk_tpu_torch.utils.impute\n"
+        "import covid19uk_tpu_torch.utils.logging\n"
+        "import covid19uk_tpu_torch.utils.ncio\n"
+        "import covid19uk_tpu_torch.utils.store\n"
         "from covid19uk_tpu_torch.utils.synthetic import "
         "build_synthetic_model\n"
         "m = build_synthetic_model(150, 8, sparse=True, device='cpu')\n"
@@ -157,12 +169,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_chip_smoke_rehearsal_on_cpu():
-    """The chip smoke script's CPU rehearsal runs the slice at a tiny size
-    and, having no card, exits non-zero without a result line."""
+    """The chip smoke script's CPU rehearsal runs the slices and the
+    driver phases at a tiny size and, having no card, exits non-zero
+    without a result line."""
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse"],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
     )
     assert out.returncode == 3, out.stderr
     assert "phase 3 slice" in out.stdout
+    assert "phase 6 driver on the CPU" in out.stdout
+    assert "phase 7 driver on the CPU" in out.stdout
     assert '"ok"' not in out.stdout

@@ -2,7 +2,7 @@
 """Runs the PyTorch/CUDA port (covid19uk_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # on a machine with a card
-    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5, 6, 7; exits 3
+    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-8; exits 3
 
 Phases, one short line each:
   0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
@@ -43,10 +43,28 @@ Phases, one short line each:
      bursts' host copy, the diagnostics event;
   7. the driver at MSOA width (phase 5's model and chain, windows 10, 4
      and 6, one burst of 5 draws): one K2 launch per transition (25),
-     final-window HMC acceptance above 0; the same lines.
-Then the kernels' JSON line (launches: phases 6 and 7) and, last, the
-result line.  Any failure exits non-zero, as does a run without a CUDA
-device.
+     final-window HMC acceptance above 0; the same lines;
+  8. the posterior verbs on the card, on phase 6's in-memory posterior (4
+     stored draws of 64 chains, M=380, T=120): thin (chains folded into
+     256 samples), predict in sample from day T-7 for 7 days and out of
+     sample from the last day for 14 days (alpha_t redrawn, the weekday
+     covariate extended), R_it over all days in chunks of 50 samples and
+     R_t, within/between at the final day.  Checks: predicted events are
+     non-negative integers of the expected shapes, no draw exceeds its
+     source compartment and the implied state stays non-negative; R_it is
+     finite and non-negative, R_t is its N-weighted sum, and R_it at four
+     (sample, day) pairs is within 1e-4 relative of a float64 CPU
+     recomputation through the same NGM function; within + between = 1
+     within 1e-5, and within and between agree with float64 on the CPU
+     within 1e-5 of |within| + |between|, on the posterior's final state
+     and on a population-count state; and one simulated day at population counts (S up to
+     1.2 million, rates up to 3) passes the prediction's checks with its
+     total within 6 standard deviations of its mean.  Prints each verb's
+     time (host clock after a synchronize) and samples/sec, and R_it's
+     peak device memory.
+Then the kernels' JSON line (launches: phases 6 and 7; phase 8 launches
+neither kernel) and, last, the result line.  Any failure exits non-zero,
+as does a run without a CUDA device.
 """
 
 import faulthandler
@@ -73,6 +91,11 @@ UK_DRIVER = (dict(first_window=20, slow_window=5, num_slow_windows=2,
                   last_window=10), 2, 10, 5)
 MSOA_DRIVER = (dict(first_window=10, slow_window=4, num_slow_windows=1,
                     last_window=6), 1, 5, 1)
+# phase 8: days predicted in sample (from day T-7) and out of sample (from
+# the last day); the synthetic covariates' day 0 is a Monday
+PREDICT_IN, PREDICT_OUT = 7, 14
+ORIGIN_DATE = "2020-10-05"
+RIT_CHECKS = 4  # (sample, day) pairs recomputed in float64 on the CPU
 K2_REPS, K2_COLD_REPS = 50, 21
 FLUSH_BYTES = 256 * 2**20  # written between cold launches: > the 50 MB L2
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -732,7 +755,7 @@ def phase_driver(torch, phase, model, state, ecfg, plan, kernel, card=""):
     final-window HMC acceptance in (0, 1], the pooled step sizes equal,
     every adapted step size and mass finite and positive, the stored
     samples' shapes and non-negative integer events.  Returns (launches,
-    transitions)."""
+    transitions, the store)."""
     from covid19uk_tpu_torch.inference.driver import run_mcmc
     from covid19uk_tpu_torch.inference.warmup import WarmupSchedule
 
@@ -803,7 +826,214 @@ def phase_driver(torch, phase, model, state, ecfg, plan, kernel, card=""):
     say(f"phase {phase} driver on {card or 'the CPU'} (M={M}, T={T}, {C} "
         f"chains): {transitions} transitions, {kernel} launches "
         f"{launches}, stored {ev.shape} ({wall:.1f} s)")
-    return launches, transitions
+    return launches, transitions, store
+
+
+def timed(torch, dev, fn):
+    """(fn's result, its host-clock seconds ending in a synchronize)."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
+
+
+def check_prediction(new_init, events, shape):
+    """Problems of a prediction: events not of ``shape``, or what
+    :func:`seir.simulation_problems` finds."""
+    from covid19uk_tpu_torch.models import seir
+
+    problems = seir.simulation_problems(new_init, events)
+    if tuple(events.shape) != shape:
+        problems.append(f"events {tuple(events.shape)}, expected {shape}")
+    return problems
+
+
+def phase_posterior(torch, dev, store, covariates, init_state, card=""):
+    """Phase 8: the posterior verbs on phase 6's in-memory posterior
+    through the cores their CLIs call (the card's machine has no h5py
+    for the files): thin, predict in and out of sample, R_it and R_t,
+    within/between; checks as the module docstring says.  The kernels'
+    launch counts are set to 0 just before and read just after (this
+    path launches neither).  Returns the phase's wall seconds."""
+    from covid19uk_tpu_torch.models import seir
+    from covid19uk_tpu_torch.models.ngm import next_generation_matrix_fn
+    from covid19uk_tpu_torch.models.spec import ModelData
+    from covid19uk_tpu_torch.posterior import reproduction_number as rn
+    from covid19uk_tpu_torch.posterior.predict import (
+        _params_from_samples, predicted_incidence, prediction_data)
+    from covid19uk_tpu_torch.posterior.thin import thin_samples
+    from covid19uk_tpu_torch.posterior.within_between import (
+        calc_pressure_components)
+
+    t_phase = time.perf_counter()
+    on_card = dev.type == "cuda"
+    reset_launches()
+    problems, lines = [], []
+
+    def report(name, seconds, n):
+        lines.append(f"phase 8 {name}: {seconds:.4f} s, {n / seconds!r} "
+                     f"samples/sec")
+
+    posterior = {k[len("samples/"):]: v for k, v in store.data.items()
+                 if k.startswith("samples/")}
+    samples, secs = timed(torch, dev, lambda: thin_samples(
+        posterior, init_state, dict(start=0, end=None, by=1)))
+    S, M, T = samples["seir"].shape[:3]
+    report(f"thin to {S} samples", secs, S)
+
+    # the predict CLI's data: the weekday covariate over the window
+    for name, start, days in [("in sample", T - PREDICT_IN, PREDICT_IN),
+                              ("out of sample", T - 1, PREDICT_OUT)]:
+        data, _ = prediction_data(covariates, ORIGIN_DATE, start + days, dev)
+        (new_init, events), secs = timed(torch, dev, lambda: (
+            predicted_incidence(samples, init_state, data, start, days,
+                                out_of_sample=name == "out of sample",
+                                seed=0)))
+        report(f"predict {name} from day {start} for {days} days", secs, S)
+        problems += [f"predict {name}: {p}" for p in check_prediction(
+            new_init, events, (S, M, days, 3))]
+        lines.append(f"phase 8 predict {name}: {float(events.sum())!r} "
+                     f"events in all, largest S "
+                     f"{float(new_init[..., 0].max())!r}")
+
+    # the simulation's binomial draws at population counts (the largest
+    # LAD's S, 1.2 million, the synthetic N's upper clip) with large
+    # probabilities: the predictions above draw few events where the
+    # synthetic epidemic fades by day T
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    pop = torch.as_tensor(covariates["N"], dtype=torch.float32, device=dev)
+    pop = (pop * (1.2e6 / pop.max())).round()
+    counts = torch.stack([pop, (pop / 2).round(), (pop / 3).round(),
+                          torch.zeros_like(pop)], -1).expand(S, M, 4)
+    rates = 3.0 * torch.rand((S, M, 3), generator=gen, device=dev)
+    big = seir.chain_binomial_sample(gen, lambda t, st: rates, counts, 0,
+                                     1)
+    problems += [f"binomial at population counts: {p}" for p in
+                 check_prediction(counts, big, (S, M, 1, 3))]
+    mean = counts[..., :3] * -torch.expm1(-rates)
+    z = float((big[..., 0, :] - mean).sum() / torch.sqrt(
+        (mean * torch.exp(-rates)).sum()))
+    lines.append(f"phase 8 binomial at population counts: {S * M * 3} draws"
+                 f" from counts up to {float(pop.max())!r}, largest draw "
+                 f"{float(big.max())!r}, sum against its mean {z!r} standard"
+                 f" deviations")
+    if not abs(z) < 6.0:
+        problems.append(f"binomial draws' sum is {z!r} standard deviations "
+                        f"from its mean")
+
+    data = ModelData.create(covariates, torch.float32, sparse=False,
+                            keep_C=False, device=dev)
+    if on_card:
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    times = np.arange(T)
+    r_it, secs = timed(torch, dev, lambda: rn.posterior_rit(
+        samples, init_state, times, data))
+    peak = (f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB "
+            f"({before / 2**20:.0f} MiB held before it)" if on_card
+            else "not measured on the CPU")
+    r_t = rn.population_weighted(r_it, covariates["N"])
+    report(f"R_it [{S}, {T}, {M}] in chunks of {rn.CHUNKSIZE} and R_t", secs,
+           S)
+    lines.append(f"phase 8 R_it peak device memory {peak}")
+    if not (np.isfinite(r_it).all() and (r_it >= 0).all()):
+        problems.append("R_it is not finite and non-negative")
+    N = np.asarray(covariates["N"], np.float64)
+    if not np.allclose(r_t, r_it @ (N / N.sum()), rtol=1e-12, atol=0.0):
+        problems.append("R_t is not the N-weighted sum of R_it")
+    # four (sample, day) pairs in float64 on the CPU, same NGM function
+    cpu = ModelData.create(covariates, torch.float64, sparse=False,
+                           keep_C=False, device="cpu")
+    rel = 0.0
+    for s_, t_ in zip(np.linspace(0, S - 1, RIT_CHECKS).astype(int),
+                      np.linspace(0, T - 1, RIT_CHECKS).astype(int)):
+        one = {k: v[s_:s_ + 1] for k, v in samples.items()}
+        state = seir.compute_state(
+            torch.as_tensor(np.asarray(init_state, np.float64)),
+            torch.as_tensor(np.asarray(one["seir"], np.float64)))
+        params = _params_from_samples(one, dtype=torch.float64)
+        want = next_generation_matrix_fn(cpu, params)(
+            torch.tensor([t_]), state[:, :, t_:t_ + 1, :].transpose(1, 2)
+        ).sum(-2)[0, 0].numpy()
+        rel = max(rel, float(np.max(np.abs(r_it[s_, t_] - want)
+                                    / np.abs(want))))
+    lines.append(f"phase 8 R_it at {RIT_CHECKS} (sample, day) pairs against "
+                 f"float64 on the CPU: max relative error {rel!r}")
+    if not rel <= 1e-4:
+        problems.append(f"R_it differs from float64 by {rel!r} relative")
+
+    wb_data = ModelData.create(covariates, torch.float32, sparse=False,
+                               device=dev)
+    psi = torch.as_tensor(samples["psi"], dtype=torch.float32, device=dev)
+
+    def pressures():
+        events = torch.as_tensor(samples["seir"], dtype=torch.float32,
+                                 device=dev)
+        init = torch.as_tensor(init_state, dtype=torch.float32, device=dev)
+        final = seir.compute_state(init, events)[..., -1, :]
+        return calc_pressure_components(wb_data, psi, final), final
+
+    ((within, between), final), secs = timed(torch, dev, pressures)
+    report("within/between at the final day", secs, S)
+    # a location without infectious people and without commuting pressure
+    # has no pressure to split: 0 / 0, as in the JAX package
+    total = within + between
+    undefined = ~torch.isfinite(total)
+    err = float((total[~undefined] - 1.0).abs().max())
+    lines.append(f"phase 8 within + between - 1: max abs {err!r} over the "
+                 f"{int((~undefined).sum())} of {total.numel()} (sample, "
+                 f"location) pairs with pressure; within mean "
+                 f"{float(within[~undefined].mean())!r}")
+    if not err <= 1e-5:
+        problems.append(f"within + between differs from 1 by {err!r}")
+    if bool((final[..., 2][undefined] != 0).any()):
+        problems.append("within/between undefined where I > 0")
+    # the same function in float64 on the CPU, on the posterior's final
+    # state (computed anew from the samples) and on the population-count
+    # state of the binomial check, where every location carries pressure
+    cpu = ModelData.create(covariates, torch.float64, sparse=False,
+                           device="cpu")
+    psi64 = torch.as_tensor(np.asarray(samples["psi"], np.float64))
+    final64 = seir.compute_state(
+        torch.as_tensor(np.asarray(init_state, np.float64)),
+        torch.as_tensor(np.asarray(samples["seir"], np.float64)))[..., -1, :]
+    for name, got, st in [
+            ("the posterior's final state", (within, between), final64),
+            ("population counts", calc_pressure_components(wb_data, psi,
+                                                           counts),
+             counts.cpu().double())]:
+        want = calc_pressure_components(cpu, psi64, st)
+        got = [g.cpu().double() for g in got]
+        defined = torch.isfinite(want[0] + want[1])
+        if not torch.equal(defined, torch.isfinite(got[0] + got[1])):
+            problems.append(f"within/between on {name}: defined at other "
+                            f"pairs than float64")
+            continue
+        scale = (want[0].abs() + want[1].abs())[defined]
+        rel = max(float(((g - w)[defined].abs() / scale).max())
+                  for g, w in zip(got, want))
+        lines.append(f"phase 8 within/between on {name} against float64 "
+                     f"on the CPU: max error {rel!r} of |within| + |between|"
+                     f" over {int(defined.sum())} of {defined.numel()} "
+                     f"(sample, location) pairs")
+        if not rel <= 1e-5:
+            problems.append(f"within/between on {name} differs from "
+                            f"float64 by {rel!r}")
+
+    launches = read_launches()
+    for line in lines:
+        say(line)
+    if problems:
+        raise AssertionError("phase 8: " + "; ".join(problems))
+    wall = time.perf_counter() - t_phase
+    say(f"phase 8 posterior verbs on {card or 'the CPU'} ({S} samples, M={M},"
+        f" T={T}): checks passed, launches {json.dumps(launches)} ({wall:.1f}"
+        f" s)")
+    return wall
 
 
 def main(argv):
@@ -818,15 +1048,19 @@ def main(argv):
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from covid19uk_tpu_torch.ops import _build
+    from covid19uk_tpu_torch.utils.synthetic import synthetic_covariates
 
     if rehearse:
         say("phase 0 rehearsal on the CPU at a tiny size (phases 1, 2 and 4"
             " skipped, no result line)")
         model, state, gen = build_chains(torch, "cpu", **TINY)
         phase_slice(torch, model, state, gen, timed=2)
-        phase_driver(torch, 6, model, state, uk_driver_config(TINY["T"]),
-                     UK_DRIVER, "fused_sweep")
+        *_, store = phase_driver(torch, 6, model, state,
+                                 uk_driver_config(TINY["T"]), UK_DRIVER,
+                                 "fused_sweep")
         rehearse_msoa(torch)
+        covariates, init = synthetic_covariates(TINY["M"], TINY["T"])
+        phase_posterior(torch, torch.device("cpu"), store, covariates, init)
         return 3
 
     card = card_line()
@@ -851,7 +1085,7 @@ def main(argv):
     ms, _ = phase_slice(torch, model, state, gen, N_TIMED, card)
     say(f"breakdown: HMC density value+grad {grad_ms(torch, model, state):.3f}"
         f" ms (x17 per transition), fused sweep {k1['ms']:.3f} ms")
-    k1_launches, uk_transitions = phase_driver(
+    k1_launches, uk_transitions, uk_store = phase_driver(
         torch, 6, model, state, uk_driver_config(T), UK_DRIVER,
         "fused_sweep", card)
     del model, state
@@ -868,9 +1102,15 @@ def main(argv):
     msoa_ms, _, breakdown = phase_msoa(torch, msoa, mstate, mgen,
                                        MSOA_TIMED, card)
     say(f"{breakdown}, K2 {k2['ms']:.4f} ms")
-    k2_launches, msoa_transitions = phase_driver(
+    k2_launches, msoa_transitions, _ = phase_driver(
         torch, 7, msoa, mstate, msoa_config(MSOA_T), MSOA_DRIVER,
         "bsr_matmul", card)
+    del msoa, mstate, op
+
+    # phase 6's model from its seed: the same covariates and initial state
+    covariates, init = synthetic_covariates(M, T)
+    verbs_s = phase_posterior(torch, torch.device("cuda"), uk_store,
+                              covariates, init, card)
 
     kernels = [
         dict(name="fused_sweep", route="cuda",
@@ -889,8 +1129,9 @@ def main(argv):
     say(f"{ms:.3f} ms per transition at M={M}, C={C}; {msoa_ms:.3f} ms per "
         f"transition at M={MSOA_M}, one chain; driver launches: K1 "
         f"{k1_launches / uk_transitions:g} per UK transition, K2 "
-        f"{k2_launches / msoa_transitions:g} per MSOA transition; on {card};"
-        f" wall {time.perf_counter() - t0:.1f} s")
+        f"{k2_launches / msoa_transitions:g} per MSOA transition; posterior "
+        f"verbs {verbs_s:.1f} s; on {card}; wall "
+        f"{time.perf_counter() - t0:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {

@@ -65,3 +65,22 @@ def chain_binomial_sample(generator, rate_fn, initial_state, initial_step,
         state = state + draws @ stoich
         draws_t.append(draws)
     return torch.stack(draws_t, dim=-2)
+
+
+def simulation_problems(initial_state, events):
+    """What is wrong with simulated ``events [..., M, T, X]`` from
+    ``initial_state [..., M, S]``, as a list of messages (empty when
+    nothing is): events that are not non-negative integers, a draw above
+    its source compartment, or an implied state, the end state included,
+    that goes negative."""
+    problems = []
+    if not (bool((events >= 0).all())
+            and bool((events == torch.round(events)).all())):
+        problems.append("events are not non-negative integers")
+    state = compute_state(initial_state, events)  # each day's start
+    if bool((events > state[..., SOURCE_STATES]).any()):
+        problems.append("a draw exceeds its source compartment")
+    end = state[..., -1, :] + events[..., -1, :] @ _stoich(events)
+    if bool((state < 0).any()) or bool((end < 0).any()):
+        problems.append("the implied state goes negative")
+    return problems

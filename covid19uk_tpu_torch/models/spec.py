@@ -378,9 +378,9 @@ class CovidUK:
                 + _tail(params.sigma_space, 1) * params.spatial_effect
             )  # [..., M]
             infectious = state[..., 2]
-            commute = torch.matmul(
-                d.Cstar, (infectious / d.N)[..., None]
-            )[..., 0]
+            # Cstar @ (I/N) for every batch row in one [..., M] @ [M, M]
+            # product: Cstar is symmetric
+            commute = torch.matmul(infectious / d.N, d.Cstar.T)
             rate_se = (
                 torch.exp(eta)
                 * (infectious + _tail(params.psi, 1) * w_t * commute)
@@ -456,10 +456,22 @@ class CovidUK:
 
     def sample_seir(self, generator, params: Parameters):
         """Forward-simulates ``[..., M, T, X]`` events given (possibly
-        chain-batched) parameters."""
+        batched) parameters.  The initial state is ``[M, S]``, shared by
+        every batch row, or ``[..., M, S]``, one per row (prediction
+        simulates each posterior sample from its own state)."""
         batch = params.psi.shape
-        init = self.initial_state.expand(batch + self.initial_state.shape)
+        init = self.initial_state.expand(
+            batch + self.initial_state.shape[-2:])
         return seir.chain_binomial_sample(
             generator, self.transition_rate_fn(params), init,
             self.initial_step, self.num_steps,
         )
+
+    def sample_prior_alpha_t(self, generator, dtype=torch.float32,
+                             batch_shape=()):
+        """Draws alpha_t from its prior, ``0.005 * N(0, I_{T-1})`` over
+        the model's window, ``batch_shape + (num_steps - 1,)``: used by
+        out-of-sample prediction."""
+        shape = tuple(batch_shape) + (self.num_steps - 1,)
+        return 0.005 * torch.randn(shape, generator=generator, dtype=dtype,
+                                   device=self.initial_state.device)

@@ -70,6 +70,18 @@ def build_synthetic_model(M, T, dtype=torch.float32, rng_seed=0,
     use 0.05)."""
     from covid19uk_tpu_torch.models.spec import CovidUK, ModelData
 
+    covariates, init = synthetic_covariates(M, T, rng_seed, radius_frac)
+    data = ModelData.create(covariates, dtype, sparse=sparse, keep_C=keep_C,
+                            device=device)
+    return CovidUK(
+        data, torch.as_tensor(init, dtype=dtype, device=device), 0, T
+    )
+
+
+def synthetic_covariates(M, T, rng_seed=0, radius_frac=0.12):
+    """The raw covariates of :func:`build_synthetic_model` (keys ``C``,
+    ``W``, ``N``, ``adjacency``, ``weekday``, ``area``; day 0 is a
+    Monday) and its ``[M, 4]`` initial state, as numpy."""
     rng = np.random.default_rng(rng_seed)
     coords = rng.uniform(0, 1, size=(M, 2))
     N = np.exp(rng.normal(np.log(1.5e5), 0.5, size=M))
@@ -83,14 +95,10 @@ def build_synthetic_model(M, T, dtype=torch.float32, rng_seed=0,
         weekday=(np.arange(T) % 7 < 5).astype(float),
         area=rng.uniform(1e8, 5e9, size=M),
     )
-    data = ModelData.create(covariates, dtype, sparse=sparse, keep_C=keep_C,
-                            device=device)
     init = np.stack(
         [N - 60.0, np.full(M, 20.0), np.full(M, 40.0), np.zeros(M)], axis=-1
     )
-    return CovidUK(
-        data, torch.as_tensor(init, dtype=dtype, device=device), 0, T
-    )
+    return covariates, init
 
 
 def initial_parameters(model, rng_seed=0):

@@ -127,3 +127,65 @@ def test_cuda_block_sparse_matches_plain_version(lead, T, zero_row):
     g_err = (g.cpu().numpy() - dense.sum(axis=0)[:, None]) / (
         abs(dense).sum(axis=0)[:, None])
     assert abs(g_err).max() <= 1e-5
+
+
+def _posterior_samples(S, M, T):
+    """A synthetic model and S posterior-like samples (jittered scalar
+    parameters, events simulated from each), as the numpy dict the verbs
+    read."""
+    from covid19uk_tpu_torch.models.spec import Parameters
+
+    model = synthetic.build_synthetic_model(M, T, torch.float64,
+                                            device="cpu")
+    p = synthetic.initial_parameters(model)
+    gen = torch.Generator().manual_seed(3)
+    jitter = 1.0 + 0.05 * torch.randn((S, 6), generator=gen,
+                                      dtype=torch.float64)
+    scalars = [p[i] * jitter[:, i] for i in range(6)]
+    params = Parameters(*scalars, p.alpha_t.expand(S, -1),
+                        p.spatial_effect.expand(S, -1))
+    events = model.sample_seir(gen, params)
+    samples = {k: v.numpy() for k, v in zip(Parameters._fields, params)}
+    samples["seir"] = events.numpy()
+    return model, samples
+
+
+@pytest.mark.gpu
+def test_cuda_posterior_verbs_match_the_cpu():
+    """R_it on the card (float32) within 1e-5 relative of float64 on the
+    CPU; predictions on the card, in and out of sample, are non-negative
+    integers that no compartment falls short of, with a non-negative
+    implied state."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the verbs' entry points run on it")
+    from covid19uk_tpu_torch.models.spec import ModelData
+    from covid19uk_tpu_torch.posterior.predict import (
+        prediction_data, predicted_incidence)
+    from covid19uk_tpu_torch.posterior.reproduction_number import (
+        calc_posterior_rit)
+
+    S, M, T = 16, 11, 32
+    model, samples = _posterior_samples(S, M, T)
+    covariates, init = synthetic.synthetic_covariates(M, T)
+    times = torch.arange(T)
+    want = calc_posterior_rit(samples, init, times, ModelData.create(
+        covariates, torch.float64, sparse=False, device="cpu"),
+        dtype=torch.float64)
+    got = calc_posterior_rit(samples, init, times, ModelData.create(
+        covariates, torch.float32, sparse=False, device="cuda"))
+    assert got.device.type == "cuda" and got.shape == (S, T, M)
+    rel = ((got.cpu().double() - want).abs() / want.abs()).max()
+    assert float(rel) <= 1e-5, float(rel)
+
+    for start, days, oos in [(T - 7, 7, False), (T - 1, 14, True)]:
+        data, _ = prediction_data(covariates, "2020-10-05", start + days,
+                                  "cuda")
+        new_init, ev = predicted_incidence(samples, init, data, start, days,
+                                           out_of_sample=oos, seed=1)
+        assert ev.device.type == "cuda" and ev.shape == (S, M, days, 3)
+        assert seir.simulation_problems(new_init, ev) == []
+        torch.testing.assert_close(
+            new_init.cpu().double(),
+            seir.compute_state(torch.as_tensor(init),
+                               torch.as_tensor(samples["seir"]))[
+                ..., start, :], rtol=1e-6, atol=0.0)

@@ -295,16 +295,25 @@ def test_cli_runs_from_yaml(tmp_path, rng):
 
 
 def test_driver_and_chip_smoke_import_without_h5py_and_yaml():
-    """h5py and PyYAML are blocked: the driver, the CLI module and
+    """h5py, PyYAML and pandas are blocked: the package with its lazy
+    verbs, the driver, the CLI modules, the posterior verbs and
     chip_smoke.py import, and run_mcmc writes into chip_smoke's in-memory
     store on the CPU."""
     code = (
         "import sys, json\n"
         "sys.modules['h5py'] = None\n"
         "sys.modules['yaml'] = None\n"
+        "sys.modules['pandas'] = None\n"
         "import torch\n"
+        "import covid19uk_tpu_torch as pkg\n"
         "import covid19uk_tpu_torch.inference.driver as d\n"
         "import covid19uk_tpu_torch.inference.inference\n"
+        "import covid19uk_tpu_torch.models.ngm\n"
+        "import covid19uk_tpu_torch.utils.diagnostics\n"
+        "import covid19uk_tpu_torch.utils.settings\n"
+        "for verb in ('mcmc', 'thin_posterior', 'predict',\n"
+        "             'reproduction_number', 'within_between'):\n"
+        "    assert callable(getattr(pkg, verb))\n"
         "import chip_smoke\n"
         "from covid19uk_tpu_torch.utils.synthetic import "
         "build_synthetic_model, initial_chain_state\n"
@@ -318,7 +327,7 @@ def test_driver_and_chip_smoke_import_without_h5py_and_yaml():
         "d.run_mcmc(m, st, ecfg, cfg, store, num_chains=2, device='cpu')\n"
         "print(json.dumps([store['samples/seir'].shape,\n"
         "  [k for k, v in sys.modules.items() if v is not None and (\n"
-        "   k in ('h5py', 'yaml', 'jax', 'covid19uk_tpu')\n"
+        "   k in ('h5py', 'yaml', 'pandas', 'jax', 'covid19uk_tpu')\n"
         "   or k.startswith(('jax.', 'covid19uk_tpu.')))]]))\n"
     )
     env = dict(os.environ, PYTHONPATH=ROOT)

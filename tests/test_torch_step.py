@@ -153,6 +153,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import covid19uk_tpu_torch.utils.logging\n"
         "import covid19uk_tpu_torch.utils.ncio\n"
         "import covid19uk_tpu_torch.utils.store\n"
+        "import covid19uk_tpu_torch.models.ngm\n"
+        "import covid19uk_tpu_torch.posterior.thin\n"
+        "import covid19uk_tpu_torch.posterior.predict\n"
+        "import covid19uk_tpu_torch.posterior.reproduction_number\n"
+        "import covid19uk_tpu_torch.posterior.within_between\n"
+        "import covid19uk_tpu_torch.utils.diagnostics\n"
+        "import covid19uk_tpu_torch.utils.settings\n"
+        "import covid19uk_tpu_torch.data\n"
+        "import covid19uk_tpu_torch.data.assemble\n"
+        "import covid19uk_tpu_torch.data.tiers\n"
+        "import covid19uk_tpu_torch.data.util\n"
         "from covid19uk_tpu_torch.utils.synthetic import "
         "build_synthetic_model\n"
         "m = build_synthetic_model(150, 8, sparse=True, device='cpu')\n"
@@ -169,9 +180,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 
 def test_chip_smoke_rehearsal_on_cpu():
-    """The chip smoke script's CPU rehearsal runs the slices and the
-    driver phases at a tiny size and, having no card, exits non-zero
-    without a result line."""
+    """The chip smoke script's CPU rehearsal runs the slices, the driver
+    phases and the posterior verbs at a tiny size and, having no card,
+    exits non-zero without a result line."""
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse"],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
@@ -180,4 +191,5 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "phase 3 slice" in out.stdout
     assert "phase 6 driver on the CPU" in out.stdout
     assert "phase 7 driver on the CPU" in out.stdout
+    assert "phase 8 posterior verbs on the CPU" in out.stdout
     assert '"ok"' not in out.stdout

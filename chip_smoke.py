@@ -2,7 +2,7 @@
 """Runs the PyTorch/CUDA port (covid19uk_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # on a machine with a card
-    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-8; exits 3
+    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-9; exits 3
 
 Phases, one short line each:
   0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
@@ -62,9 +62,28 @@ Phases, one short line each:
      total within 6 standard deviations of its mean.  Prints each verb's
      time (host clock after a synchronize) and samples/sec, and R_it's
      peak device memory.
-Then the kernels' JSON line (launches: phases 6 and 7; phase 8 launches
-neither kernel) and, last, the result line.  Any failure exits non-zero,
-as does a run without a CUDA device.
+  9. the off-default event kernels (the compensated E->I move, the
+     compensated pair move, the gamma refresh), which the fused sweep
+     refuses: (a) run_mcmc at UK width on 64 chains with the unfused
+     sweep, windows 10, 4, 6 and a burst of 10 (pair moves in warmup):
+     no K1 launch, phase 6's checks, the gamma and compensated results
+     stored in the JAX driver's layout, gamma-refresh acceptance in (0,
+     1], compensated acceptance above 0, finite logp and gamma; prints
+     each window's ms/transition, the acceptances, and over every
+     accepted compensated move that moved events how many shifted gamma0
+     by exactly 0 (float32) against float64 from the same states, and the
+     median |shift|; (b) at MSOA width (phase 5's model and chain), 2
+     untimed + 3 timed transitions: one K2 launch each, phase 5's
+     invariants and threaded-commute check; (c) float64 on the card,
+     M=380, 8 chains, 2 transitions with two compensated moves and the
+     compensated pair move a multiscan: the threaded logp against the
+     joint density (rtol 1e-8, atol 1e-6), and one gamma refresh with
+     injected draws against float64 on the CPU (1e-5 relative, same
+     decisions; float32's error printed).
+Then the kernels' JSON line (launches: K1 phase 6's, K2 phases 7 and 9b;
+phase 8 launches neither kernel, phase 9a must not launch K1) and, last,
+the result line.  Any failure exits non-zero, as does a run without a
+CUDA device.
 """
 
 import faulthandler
@@ -91,6 +110,11 @@ UK_DRIVER = (dict(first_window=20, slow_window=5, num_slow_windows=2,
                   last_window=10), 2, 10, 5)
 MSOA_DRIVER = (dict(first_window=10, slow_window=4, num_slow_windows=1,
                     last_window=6), 1, 5, 1)
+# phase 9a: windows 10, 4, 6 and one burst of 10 draws, all stored
+OFF_DEFAULT_DRIVER = (dict(first_window=10, slow_window=4, num_slow_windows=1,
+                           last_window=6), 1, 10, 1)
+OFF_DEFAULT_TIMED = 3  # phase 9b's timed MSOA transitions
+F64_CHAINS = 8  # phase 9c
 # phase 8: days predicted in sample (from day T-7) and out of sample (from
 # the last day); the synthetic covariates' day 0 is a Monday
 PREDICT_IN, PREDICT_OUT = 7, 14
@@ -152,9 +176,10 @@ def sass_counts(path, ops=("HMMA", "LDGSTS", "LDS", "BAR.SYNC")):
     return counts
 
 
-def build_chains(torch, device, M, T, C, seed=0):
-    """bench.py's start: synthetic model, chains with independently
-    simulated events and jittered scalar parameters."""
+def build_chains(torch, device, M, T, C, seed=0, dtype=None):
+    """bench.py's start: synthetic model (float32 unless ``dtype``),
+    chains with independently simulated events and jittered scalar
+    parameters."""
     from covid19uk_tpu_torch.inference.gibbs import ChainState
     from covid19uk_tpu_torch.models.spec import (
         Parameters, pack_parameters, unconstrain_parameters)
@@ -163,12 +188,14 @@ def build_chains(torch, device, M, T, C, seed=0):
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    model = build_synthetic_model(M, T, torch.float32, device=device)
+    dtype = dtype or torch.float32
+    model = build_synthetic_model(M, T, dtype, device=device)
     params = initial_parameters(model)
     batched = Parameters(*[p.expand((C,) + p.shape) for p in params])
     events = model.sample_seir(gen, batched)
     u = unconstrain_parameters(pack_parameters(params)).expand(C, -1)
-    jitter = 0.05 * torch.randn((C, 6), generator=gen, device=device)
+    jitter = 0.05 * torch.randn((C, 6), generator=gen, device=device,
+                                dtype=dtype)
     u = torch.cat([u[:, :6] + jitter, u[:, 6:]], dim=1)
     return model, ChainState(u=u, events=events), gen
 
@@ -596,12 +623,13 @@ def phase_k2(torch, model, gen):
                 bound_ms=bound_ms, bound_by=bound_by)
 
 
-def check_threaded_sweep(torch, model, state, tune, gen):
-    """One more unfused sweep on the final state: the threaded commute
-    against a fresh block-sparse product (within 1e-4 of |Cstar| @ |I/N|:
-    the rank-1 updates drift), the threaded state against the events'
-    cumsum, the threaded logp against a full recomputation; returns the
-    sweep's wall time in ms."""
+def check_threaded_sweep(torch, model, state, tune, gen, ecfg=None):
+    """One more unfused sweep (of ``ecfg``, default phase 5's) on the
+    final state: the threaded commute against a fresh block-sparse product
+    (within 1e-4 of |Cstar| @ |I/N|: the rank-1 updates drift), the
+    threaded state against the events' cumsum, the threaded logp against
+    a full recomputation at the sweep's gamma0; returns the sweep's wall
+    time in ms."""
     from covid19uk_tpu_torch.inference.gibbs import (
         event_sweep, resolve_event_config)
     from covid19uk_tpu_torch.inference.likelihood import make_context
@@ -611,7 +639,7 @@ def check_threaded_sweep(torch, model, state, tune, gen):
     from covid19uk_tpu_torch.ops.block_sparse import BlockSparse
 
     Mm, Tt = model.data.num_locations, model.num_steps
-    cfg = resolve_event_config(msoa_config(Tt), Mm)
+    cfg = resolve_event_config(ecfg or msoa_config(Tt), Mm)
     params = unpack_parameters(constrain_parameters(state.u), Tt, Mm)
     st = seir.compute_state(model.initial_state, state.events)
     cm = model.commute_pressure(st[..., 2])
@@ -619,7 +647,8 @@ def check_threaded_sweep(torch, model, state, tune, gen):
     ctx = make_context(model, params)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = event_sweep(model, cfg, ctx, state.events, st, cm, lp, tune, gen)
+    res = event_sweep(model, cfg, ctx, state.events, st, cm, lp, tune, gen,
+                      gamma0=state.u[:, 3])
     torch.cuda.synchronize()
     sweep_ms = (time.perf_counter() - t0) * 1e3
     op = model.data.Cstar_bsr
@@ -630,7 +659,9 @@ def check_threaded_sweep(torch, model, state, tune, gen):
     drift = float(((res.commute - fresh).abs() / (scale + 1e-30)).max())
     st_err = float((res.state - seir.compute_state(
         model.initial_state, res.events)).abs().max())
-    full = model.joint_log_prob_unconstrained(state.u, res.events)
+    u = state.u.clone()
+    u[:, 3] = res.gamma0
+    full = model.joint_log_prob_unconstrained(u, res.events)
     lp_rel = float(((res.logp - full).abs() / full.abs()).max())
     say(f"threaded sweep check: commute drift {drift!r} of |Cstar|@|I/N|, "
         f"state max abs err {st_err!r}, logp rel err {lp_rel!r} "
@@ -693,6 +724,7 @@ def rehearse_msoa(torch):
     phase_msoa(torch, model, state, gen, timed=2)
     phase_driver(torch, 7, model, state, msoa_config(model.num_steps),
                  MSOA_DRIVER, "bsr_matmul")
+    phase_9b(torch, model, state, gen, timed=2)
 
 
 class MemoryPosterior:
@@ -747,15 +779,18 @@ def uk_driver_config(T):
     return cfg._replace(t_range=(max(0, T - 21), T))
 
 
-def phase_driver(torch, phase, model, state, ecfg, plan, kernel, card=""):
+def phase_driver(torch, phase, model, state, ecfg, plan, kernel, card="",
+                 expected=None):
     """Phases 6 and 7: ``run_mcmc`` into a :class:`MemoryPosterior` with
     ``plan = (warmup windows, bursts, draws a burst, thin)``, store_warmup
     off; the kernel's launch count set to 0 just before and read just
-    after.  Checks one launch of ``kernel`` per transition (on the card),
+    after.  Checks one launch of ``kernel`` per transition (on the card;
+    ``expected`` launches in all when given),
     final-window HMC acceptance in (0, 1], the pooled step sizes equal,
     every adapted step size and mass finite and positive, the stored
     samples' shapes and non-negative integer events.  Returns (launches,
-    transitions, the store)."""
+    transitions, the store, the bursts' ms per transition with and without
+    their host copy)."""
     from covid19uk_tpu_torch.inference.driver import run_mcmc
     from covid19uk_tpu_torch.inference.warmup import WarmupSchedule
 
@@ -802,9 +837,10 @@ def phase_driver(torch, phase, model, state, ecfg, plan, kernel, card=""):
     chains = () if C == 1 else (C,)
     ev = store["samples/seir"]
     problems = []
-    if dev.type == "cuda" and launches != transitions:
+    expected = transitions if expected is None else expected
+    if dev.type == "cuda" and launches != expected:
         problems.append(f"{kernel} launched {launches} times in "
-                        f"{transitions} transitions")
+                        f"{transitions} transitions, not {expected}")
     if not 0.0 < final["hmc_accept"] <= 1.0:
         problems.append(f"final-window HMC acceptance {final['hmc_accept']}")
     for e in windows:
@@ -826,7 +862,11 @@ def phase_driver(torch, phase, model, state, ecfg, plan, kernel, card=""):
     say(f"phase {phase} driver on {card or 'the CPU'} (M={M}, T={T}, {C} "
         f"chains): {transitions} transitions, {kernel} launches "
         f"{launches}, stored {ev.shape} ({wall:.1f} s)")
-    return launches, transitions, store
+    bursts = [e for e in events if e["event"] == "burst"]
+    n = sum(e["draws"] for e in bursts)
+    wall_ms = sum(e["wall_s"] for e in bursts) * 1e3
+    copy_ms = sum(e.get("copy_ms", 0.0) for e in bursts)
+    return launches, transitions, store, (wall_ms / n, (wall_ms - copy_ms) / n)
 
 
 def timed(torch, dev, fn):
@@ -1036,6 +1076,326 @@ def phase_posterior(torch, dev, store, covariates, init_state, card=""):
     return wall
 
 
+def off_default_config(T, **kw):
+    """Phase 9's event kernels: the mcmc CLI's with the fused sweep off,
+    one compensated E->I move and the compensated pair move (warmup)
+    per multiscan, and the gamma refresh; ``kw`` overrides."""
+    base = dict(fused_sweep="never", compensate_gamma0=True,
+                num_compensated_updates=1, pair_compensate_gamma0=True,
+                gamma_gibbs=True)
+    base.update(kw)
+    return uk_driver_config(T)._replace(**base)
+
+
+class CompensatedRecord:
+    """Wraps the transition's two compensated kernels while it is entered:
+    every call keeps its gamma0 in and out, its accept flags, whether it
+    moved events, and the infectious person-time before and after in
+    float64 (exact sums of integer counts), all on the device; nothing is
+    read back until :meth:`summary`."""
+
+    KERNELS = {"move": "compensated_move_step",
+               "pair": "compensated_pair_move_step"}
+
+    def __enter__(self):
+        from covid19uk_tpu_torch.inference import gibbs
+
+        self.calls = {k: [] for k in self.KERNELS}
+        self.saved = {k: getattr(gibbs, n) for k, n in self.KERNELS.items()}
+        for key, name in self.KERNELS.items():
+            setattr(gibbs, name, self._wrap(key, self.saved[key]))
+        return self
+
+    def __exit__(self, *exc):
+        from covid19uk_tpu_torch.inference import gibbs
+
+        for key, name in self.KERNELS.items():
+            setattr(gibbs, name, self.saved[key])
+
+    def _wrap(self, key, fn):
+        import torch
+
+        def pt(state):
+            return torch.sum(state[..., 2], dim=(-2, -1),
+                             dtype=torch.float64)
+
+        def wrapped(gen, events, state, logp, evaluator, gamma, *a, **kw):
+            out = fn(gen, events, state, logp, evaluator, gamma, *a, **kw)
+            info = out[-1]
+            self.calls[key].append((gamma, out[4], info.is_accepted,
+                                    info.x_star.sum(-1) > 0, pt(state),
+                                    pt(out[1])))
+            return out
+
+        return wrapped
+
+    def summary(self, torch, key):
+        """Over every call of one kernel: calls, acceptance, the accepted
+        moves that moved events; of these, how many shifted gamma0 by
+        exactly 0, how many would in float64 from the same states (the
+        person-time unchanged), how many shifted it by 0 where float64
+        does not and by more where float64 shifts by 0; their median
+        |shift|, the median |shift| in float64, and the median relative
+        error of the nonzero shifts against float64."""
+        rec = self.calls[key]
+        if not rec:
+            return dict(calls=0)
+        g_in, g_out, acc, moved, pt_in, pt_out = [
+            torch.stack([r[i] for r in rec]) for i in range(6)]
+        real = acc & moved
+        shift = (g_out - g_in)[real].double()
+        exact = (torch.log(pt_in) - torch.log(pt_out))[real]
+        rel = ((shift - exact).abs() / exact.abs())[exact != 0]
+
+        def median(x):
+            return float(x.median()) if len(x) else float("nan")
+
+        return dict(
+            calls=len(rec), acceptance=float(acc.double().mean()),
+            accepted_moving=int(real.sum()),
+            zero_shift=int((shift == 0).sum()),
+            exact_zero=int((exact == 0).sum()),
+            lost=int(((shift == 0) & (exact != 0)).sum()),
+            spurious=int(((shift != 0) & (exact == 0)).sum()),
+            median_abs_shift=median(shift.abs()),
+            median_abs_exact_shift=median(exact.abs()),
+            median_rel_err=median(rel))
+
+
+def sweep_breakdown(torch, model, state, ecfg, gen):
+    """Host-clock ms of one unfused sweep of all chains (ending in a
+    synchronize, after one untimed) for the plain kernels, with the
+    compensated move added (a burst's sweep), and with the compensated
+    pair move too (a warmup window's); and of one gamma refresh."""
+    from covid19uk_tpu_torch.inference.gamma_gibbs import gamma_gibbs_step
+    from covid19uk_tpu_torch.inference.gibbs import (
+        HMCTunables, event_sweep, resolve_event_config)
+    from covid19uk_tpu_torch.inference.likelihood import make_context
+    from covid19uk_tpu_torch.models import seir
+    from covid19uk_tpu_torch.models.spec import (
+        constrain_parameters, unpack_parameters)
+
+    Mm, Tt = model.data.num_locations, model.num_steps
+    dev = state.u.device
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    params = unpack_parameters(constrain_parameters(state.u), Tt, Mm)
+    st = seir.compute_state(model.initial_state, state.events)
+    cm = model.commute_pressure(st[..., 2])
+    lp = model.joint_log_prob_unconstrained(state.u, state.events)
+    ctx = make_context(model, params)
+    tune = HMCTunables(step_size=None, inv_mass_diag=None)
+
+    def ms(fn):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3
+
+    out = {}
+    for name, kw in [("plain", dict(compensate_gamma0=False,
+                                    num_pair_updates=0)),
+                     ("burst", dict(num_pair_updates=0)),
+                     ("warmup", {})]:
+        cfg = resolve_event_config(ecfg._replace(**kw), Mm)
+        out[name] = ms(lambda: event_sweep(model, cfg, ctx, state.events, st,
+                                           cm, lp, tune, gen,
+                                           gamma0=state.u[:, 3]))
+    wd = model._gather_t(model.data.weekday, model._t_abs())
+    out["refresh"] = ms(lambda: gamma_gibbs_step(
+        gen, state.u[:, 3:5], state.events[..., 2].sum(1),
+        st[..., 2].sum(1), wd))
+    return out
+
+
+def phase_9a(torch, dev, M, T, C, card=""):
+    """Phase 9a: ``run_mcmc`` at full UK width with the off-default event
+    kernels (unfused sweep, compensated move and pair move, gamma
+    refresh), windows 10, 4, 6 and a burst of 10; K1 must not launch.
+    Checks phase 6's, and the stored gamma refresh and compensated-move
+    results in the JAX driver's layout, gamma-refresh acceptance in (0,
+    1], compensated acceptance above 0, finite logp and gamma0/gamma1.
+    Returns the burst's ms per transition with and without its host
+    copy."""
+    model, state, gen = build_chains(torch, dev, M, T, C)
+    t0 = time.perf_counter()
+    ecfg = off_default_config(T)
+    with CompensatedRecord() as rec:
+        _, _, store, burst_ms = phase_driver(torch, "9a", model, state, ecfg,
+                                   OFF_DEFAULT_DRIVER, "fused_sweep", card,
+                                   expected=0)
+    draws = OFF_DEFAULT_DRIVER[1] * OFF_DEFAULT_DRIVER[2]
+    chains = () if C == 1 else (C,)
+    comp = "results/move/E->I_compensated/"
+    want = {"results/gamma/is_accepted": ((), np.bool_),
+            "results/gamma/log_accept_ratio": ((), np.float32),
+            comp + "is_accepted": ((), np.bool_),
+            comp + "target_log_prob": ((), np.float32),
+            comp + "proposed_delta": ((4, ecfg.mmax), np.float32)}
+    problems = []
+    held = sorted(k for k in store.data
+                  if k.startswith(("results/gamma/", comp)))
+    if held != sorted(want):
+        problems.append(f"stored {held}")
+    for k, (tail, dtype) in want.items():
+        a = store.data.get(k)
+        if a is None or a.shape != (draws,) + chains + tail or \
+                a.dtype != dtype:
+            got = None if a is None else (a.shape, a.dtype)
+            problems.append(f"{k}: {got}")
+    gamma_acc = float(store["results/gamma/is_accepted"].mean())
+    if not 0.0 < gamma_acc <= 1.0:
+        problems.append(f"gamma-refresh acceptance {gamma_acc!r}")
+    for k in ("results/hmc/target_log_prob", comp + "target_log_prob",
+              "samples/gamma0", "samples/gamma1"):
+        if not np.isfinite(store[k]).all():
+            problems.append(f"{k} is not finite")
+    stats = {k: rec.summary(torch, k) for k in rec.KERNELS}
+    if not stats["move"].get("acceptance", 0.0) > 0.0:
+        problems.append(f"compensated moves: {stats['move']}")
+    if problems:
+        raise AssertionError("phase 9a: " + "; ".join(problems))
+    say(f"phase 9a gamma refresh acceptance {gamma_acc!r} over the {draws} "
+        f"stored draws of {C} chains")
+    split = sweep_breakdown(torch, model, state, ecfg, gen)
+    hmc = (f"{grad_ms(torch, model, state):.3f} ms" if dev == "cuda"
+           else "not measured on the CPU")
+    say(f"phase 9a breakdown (host clock, one call on the {C} starting "
+        f"chains): unfused sweep {split['plain']:.1f} ms with the plain "
+        f"kernels, {split['burst']:.1f} ms with the compensated move (a "
+        f"burst's), {split['warmup']:.1f} ms with the compensated pair move "
+        f"too (a window's); gamma refresh {split['refresh']:.2f} ms; HMC "
+        f"value+grad {hmc} (x17 per transition)")
+    for k, st in stats.items():
+        say(f"phase 9a compensated {k} over the run ({st['calls']} calls of "
+            f"{C} chains): acceptance {st['acceptance']!r}; of the "
+            f"{st['accepted_moving']} accepted moves that moved events, "
+            f"{st['zero_shift']} shifted gamma0 by exactly 0 "
+            f"({st['exact_zero']} in float64 from the same states; 0 where "
+            f"float64 is not: {st['lost']}, not 0 where float64 is: "
+            f"{st['spurious']}); median |shift| {st['median_abs_shift']!r} "
+            f"(float64: "
+            f"{st['median_abs_exact_shift']!r}), median relative error of "
+            f"the shift {st['median_rel_err']!r}")
+    say(f"phase 9a done ({time.perf_counter() - t0:.1f} s)")
+    return burst_ms
+
+
+def phase_9b(torch, model, state, gen, timed, card=""):
+    """Phase 9b: the off-default kernels at MSOA width (phase 5's model
+    and chain, threaded commute): ``timed`` transitions after 2 untimed,
+    one K2 launch each, phase 5's invariants, and on the card its
+    threaded-commute check.  Returns K2's launches."""
+    from covid19uk_tpu_torch.inference.gibbs import HMCTunables, make_mcmc_step
+
+    dev = state.u.device
+    t0 = time.perf_counter()
+    ecfg = msoa_config(model.num_steps)._replace(
+        compensate_gamma0=True, pair_compensate_gamma0=True,
+        gamma_gibbs=True)
+    step = make_mcmc_step(model, 16, ecfg)
+    tune = HMCTunables(
+        step_size=torch.tensor(0.01, device=dev),
+        inv_mass_diag=torch.ones(state.u.shape[1], device=dev),
+    )
+    state, traces, ms, launches, peak = run_transitions(
+        torch, model, state, gen, step, tune, timed)
+    if dev.type == "cuda" and launches["bsr_matmul"] != timed:
+        raise AssertionError(f"phase 9b: bsr_matmul launched "
+                             f"{launches['bsr_matmul']} times in {timed} "
+                             f"transitions")
+    acc = acceptance(torch, traces, ("hmc", "comp_ei", "pair", "gamma"))
+    say(f"phase 9b MSOA off-default kernels on {card or 'the CPU'} (M="
+        f"{model.data.num_locations}, 1 chain): {timed} timed transitions, "
+        f"{ms:.2f} ms/transition, launches {json.dumps(launches)}, "
+        f"acceptance {json.dumps(acc)}, peak {peak:.0f} MiB")
+    if dev.type == "cuda":
+        check_threaded_sweep(torch, model, state, tune, gen, ecfg)
+    say(f"phase 9b done ({time.perf_counter() - t0:.1f} s)")
+    return launches["bsr_matmul"]
+
+
+def phase_9c(torch, dev, M, T, C):
+    """Phase 9c: float64 on ``dev``: 2 transitions with two compensated
+    moves and the compensated pair move a multiscan (gamma refresh off),
+    the threaded logp against the joint density of the new state (rtol
+    1e-8, atol 1e-6); then one gamma refresh of C chains with injected
+    draws against float64 on the CPU (within 1e-5 relative, the same
+    decisions), and the float32 refresh's error beside it."""
+    from covid19uk_tpu_torch.inference.gamma_gibbs import (
+        GammaNoise, gamma_gibbs_step)
+    from covid19uk_tpu_torch.inference.gibbs import HMCTunables, make_mcmc_step
+
+    t0 = time.perf_counter()
+    model, state, gen = build_chains(torch, dev, M, T, C,
+                                     dtype=torch.float64)
+    step = make_mcmc_step(model, 16, off_default_config(
+        T, num_compensated_updates=2, gamma_gibbs=False))
+    tune = HMCTunables(
+        step_size=torch.tensor(0.005, device=dev, dtype=torch.float64),
+        inv_mass_diag=torch.ones(state.u.shape[1], device=dev,
+                                 dtype=torch.float64))
+    problems, worst = [], 0.0
+    with CompensatedRecord() as rec:
+        for _ in range(2):
+            state, tr = step(state, tune, gen)
+            full = model.joint_log_prob_unconstrained(state.u, state.events)
+            lp = tr.comp_ei.target_log_prob
+            worst = max(worst, float(((lp - full).abs()
+                                      / (1e-6 + 1e-8 * full.abs())).max()))
+    stats = {k: rec.summary(torch, k) for k in rec.KERNELS}
+    if not worst <= 1.0:
+        problems.append(f"threaded logp {worst!r} of the tolerance from the "
+                        f"joint density")
+    if not stats["move"]["accepted_moving"] > 0:
+        problems.append("no compensated move accepted: the check is vacuous")
+    say(f"phase 9c float64 transitions of {C} chains: threaded logp against "
+        f"the joint density, largest error {worst!r} of the tolerance (rtol "
+        f"1e-8, atol 1e-6); accepted compensated moves that moved events: "
+        f"{stats['move']['accepted_moving']} of "
+        f"{stats['move']['calls'] * C}, pair moves "
+        f"{stats['pair']['accepted_moving']} of "
+        f"{stats['pair']['calls'] * C}")
+
+    rng = np.random.default_rng(0)
+    wd = (np.arange(T) % 7 < 5).astype(float)
+    K = rng.integers(200, 3000, (C, T)).astype(float)
+    N = K * rng.uniform(3.0, 8.0, (C, T))
+    g = np.stack([np.log(-np.log1p(-K.sum(1) / N.sum(1))), np.zeros(C)], 1)
+    g += rng.normal(0.0, 0.05, (C, 2))
+    draws = (rng.normal(size=(C, 2)), rng.chisquare(5.0, C),
+             rng.uniform(size=C))
+
+    def refresh(device, dtype):
+        def t(a):
+            return torch.tensor(a, dtype=dtype, device=device)
+
+        g_new, info = gamma_gibbs_step(None, t(g), t(K), t(N),
+                                       t(wd - wd.mean()),
+                                       noise=GammaNoise(*map(t, draws)))
+        return g_new.cpu().double(), info.is_accepted.cpu()
+
+    want, want_acc = refresh("cpu", torch.float64)
+    rels = []
+    differ = []
+    for dtype in (torch.float64, torch.float32):
+        got, got_acc = refresh(dev, dtype)
+        rels.append(float(((got - want).abs()
+                           / want.abs().clamp(min=1e-3)).max()))
+        differ.append(int((got_acc != want_acc).sum()))
+    if not (rels[0] <= 1e-5 and differ[0] == 0):
+        problems.append(f"float64 refresh {rels[0]!r} from the CPU's, "
+                        f"{differ[0]} decisions differ")
+    say(f"phase 9c gamma refresh of {C} chains (T={T}) on {dev}: float64 "
+        f"within {rels[0]!r} relative of float64 on the CPU, the same "
+        f"decisions; float32 within {rels[1]!r}, {differ[1]} decisions "
+        f"differ; {int(want_acc.sum())} of {C} accepted")
+    if problems:
+        raise AssertionError("phase 9c: " + "; ".join(problems))
+    say(f"phase 9c done ({time.perf_counter() - t0:.1f} s)")
+
+
 def main(argv):
     rehearse = "--rehearse" in argv
     faulthandler.dump_traceback_later(360, exit=True)
@@ -1051,16 +1411,21 @@ def main(argv):
     from covid19uk_tpu_torch.utils.synthetic import synthetic_covariates
 
     if rehearse:
+        # tiny tensors gain nothing from intra-op threads, and on a busy
+        # host the threads' waits slow the run several times over
+        torch.set_num_threads(1)
         say("phase 0 rehearsal on the CPU at a tiny size (phases 1, 2 and 4"
             " skipped, no result line)")
         model, state, gen = build_chains(torch, "cpu", **TINY)
         phase_slice(torch, model, state, gen, timed=2)
-        *_, store = phase_driver(torch, 6, model, state,
+        _, _, store, _ = phase_driver(torch, 6, model, state,
                                  uk_driver_config(TINY["T"]), UK_DRIVER,
                                  "fused_sweep")
         rehearse_msoa(torch)
         covariates, init = synthetic_covariates(TINY["M"], TINY["T"])
         phase_posterior(torch, torch.device("cpu"), store, covariates, init)
+        phase_9a(torch, "cpu", **TINY)
+        phase_9c(torch, "cpu", **TINY)
         return 3
 
     card = card_line()
@@ -1085,7 +1450,7 @@ def main(argv):
     ms, _ = phase_slice(torch, model, state, gen, N_TIMED, card)
     say(f"breakdown: HMC density value+grad {grad_ms(torch, model, state):.3f}"
         f" ms (x17 per transition), fused sweep {k1['ms']:.3f} ms")
-    k1_launches, uk_transitions, uk_store = phase_driver(
+    k1_launches, uk_transitions, uk_store, fused_ms = phase_driver(
         torch, 6, model, state, uk_driver_config(T), UK_DRIVER,
         "fused_sweep", card)
     del model, state
@@ -1102,7 +1467,7 @@ def main(argv):
     msoa_ms, _, breakdown = phase_msoa(torch, msoa, mstate, mgen,
                                        MSOA_TIMED, card)
     say(f"{breakdown}, K2 {k2['ms']:.4f} ms")
-    k2_launches, msoa_transitions, _ = phase_driver(
+    k2_launches, msoa_transitions, _, _ = phase_driver(
         torch, 7, msoa, mstate, msoa_config(MSOA_T), MSOA_DRIVER,
         "bsr_matmul", card)
     del msoa, mstate, op
@@ -1111,6 +1476,14 @@ def main(argv):
     covariates, init = synthetic_covariates(M, T)
     verbs_s = phase_posterior(torch, torch.device("cuda"), uk_store,
                               covariates, init, card)
+    del uk_store
+
+    off_ms = phase_9a(torch, "cuda", M, T, C, card)
+    msoa, mstate, mgen = build_msoa(torch, "cuda", MSOA_M, MSOA_T)
+    k2_launches += phase_9b(torch, msoa, mstate, mgen, OFF_DEFAULT_TIMED,
+                            card)
+    del msoa, mstate
+    phase_9c(torch, "cuda", M, T, F64_CHAINS)
 
     kernels = [
         dict(name="fused_sweep", route="cuda",
@@ -1129,8 +1502,12 @@ def main(argv):
     say(f"{ms:.3f} ms per transition at M={M}, C={C}; {msoa_ms:.3f} ms per "
         f"transition at M={MSOA_M}, one chain; driver launches: K1 "
         f"{k1_launches / uk_transitions:g} per UK transition, K2 "
-        f"{k2_launches / msoa_transitions:g} per MSOA transition; posterior "
-        f"verbs {verbs_s:.1f} s; on {card}; wall "
+        f"{k2_launches / (msoa_transitions + OFF_DEFAULT_TIMED):g} per MSOA "
+        f"transition; posterior verbs {verbs_s:.1f} s; off-default kernels "
+        f"{off_ms[0]:.3f} ms per burst transition at M={M}, C={C} "
+        f"({off_ms[1]:.3f} without the host copy) against the fused "
+        f"driver's {fused_ms[0]:.3f} ({fused_ms[1]:.3f}; phase 6); on "
+        f"{card}; wall "
         f"{time.perf_counter() - t0:.1f} s")
     say(card)
     say(json.dumps({"kernels": kernels}))

@@ -9,7 +9,9 @@ with the block-sparse commute kernel, and around them the MCMC driver
 checkpointed bursts, diagnostics, the HDF5 posterior, the inference CLI),
 the posterior verbs (:mod:`covid19uk_tpu_torch.posterior`: thin, predict,
 R_t, within/between) and the ETL (:mod:`covid19uk_tpu_torch.data`, host
-pandas).  It imports torch and numpy, h5py and PyYAML inside the
+pandas).  The model API (the SEIR process, ``CovidUK`` and its
+parameter packing, the next-generation matrix) is at top level, as in
+the JAX package.  It imports torch and numpy, h5py and PyYAML inside the
 functions that need them, pandas in the ETL and inside within/between;
 never JAX nor the JAX package.  Module names follow the JAX package so
 each counterpart is easy to find.  Entry points that compute take an
@@ -17,7 +19,38 @@ explicit ``device`` (default ``"cuda"``) and never move to the CPU on
 their own.
 """
 
+from covid19uk_tpu_torch.models.seir import (
+    NU,
+    STOICHIOMETRY,
+    TIME_DELTA,
+    chain_binomial_log_prob,
+    chain_binomial_sample,
+    compute_state,
+)
+from covid19uk_tpu_torch.models.spec import (
+    CovidUK,
+    ModelData,
+    constrain_parameters,
+    pack_parameters,
+    unconstrain_parameters,
+    unpack_parameters,
+)
+from covid19uk_tpu_torch.models.ngm import next_generation_matrix_fn
+
 __all__ = [
+    "STOICHIOMETRY",
+    "TIME_DELTA",
+    "NU",
+    "compute_state",
+    "chain_binomial_log_prob",
+    "chain_binomial_sample",
+    "CovidUK",
+    "ModelData",
+    "pack_parameters",
+    "unpack_parameters",
+    "constrain_parameters",
+    "unconstrain_parameters",
+    "next_generation_matrix_fn",
     "assemble_data",
     "mcmc",
     "thin_posterior",

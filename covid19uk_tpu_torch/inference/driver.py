@@ -71,7 +71,11 @@ def run_device(device):
 
 
 def check_ported(config):
-    """Raises ``NotImplementedError`` for the options this port lacks."""
+    """Raises ``NotImplementedError`` for the options of the ``Mcmc``
+    config that this port lacks: the multi-device ones and
+    ``debug_nans``.  Every other option, the off-default event kernels
+    (``compensate_gamma0``, ``pair_compensate_gamma0``, ``gamma_gibbs``)
+    included, runs."""
     if config.use_mesh or config.space_devices > 1:
         raise NotImplementedError(
             "use_mesh / space_devices > 1 (and the distributed "

@@ -12,8 +12,9 @@ distribution; the samplers take their uniforms as arguments so that they
 can be fed JAX's.
 
 Every kernel returns ``(events, state, commute, logp, EventMoveInfo)``;
-``commute`` is None when none was threaded in.  The gamma0-compensated
-kernels are not ported yet.
+``commute`` is None when none was threaded in; the gamma0-compensated
+kernels also return the moved intercept, ``(events, state, commute, logp,
+gamma, EventMoveInfo)``.
 """
 
 import math
@@ -468,13 +469,98 @@ def occult_step(gen, events, state, current_logp, evaluator,
     return ev, st, commute, logp, info
 
 
-def compensated_move_step(*args, **kwargs):
-    """The gamma0-compensated move (not ported yet)."""
-    raise NotImplementedError(
-        "compensated_move_step is not ported yet (off-default kernels)")
+def compensated_move_step(gen, events, state, current_logp, evaluator,
+                          gamma, potential_fn, gamma_delta_fn,
+                          target_id: int, dmax: int, mmax: int, nmax: int,
+                          move_decay=0.9, x_decay=1.0, commute=None,
+                          guide_logits=None):
+    """A joint (gamma, events) move: an event move as
+    :func:`event_move_step` proposes it, plus the deterministic
+    translation
+
+        gamma' = gamma + potential(state) - potential(state')
+
+    of a rate intercept (production: gamma0 with ``potential = log sum
+    I``, so ``exp(gamma) * PT`` stays put along the likelihood ridge).
+    For a fixed event move the translation has unit Jacobian and the
+    reverse move's shift is exactly its negative, so the kernel is
+    reversible; it conserves ``gamma + potential`` and must be composed
+    with a kernel that moves gamma across the ridge (HMC).
+
+    Args:
+      gamma: ``[C]`` current intercepts.
+      potential_fn: ``state [C, M, T, S] -> [C]`` ridge potential.
+      gamma_delta_fn: ``(events', state', gamma, gamma') -> [C]``, the
+        change of every gamma-dependent density term at the proposed
+        events, ``logp(gamma', e') - logp(gamma, e')``.
+      Other args: as :func:`event_move_step`.
+
+    The potential and the gamma delta read the proposed tensors, so the
+    move is applied before the decision and undone by subtraction where
+    it is rejected (a threaded commute keeps that ulp-level drift).
+
+    Returns ``(events, state, commute, logp, gamma, EventMoveInfo)``."""
+    dtype = events.dtype
+    phi_old = potential_fn(state)
+    prop = _propose_moves(gen, events, state, evaluator, target_id, dmax,
+                          mmax, nmax, move_decay, x_decay, commute=commute,
+                          guide_logits=guide_logits)
+    ev, st = apply_event_deltas(events, state, prop.locs, prop.t_src,
+                                prop.t_dst, prop.x_eff, target_id)
+    for i in range(mmax):
+        commute = evaluator.apply_commute(
+            commute, prop.locs[:, i], prop.t_src[:, i], prop.t_dst[:, i],
+            prop.x_eff[:, i], target_id)
+    gamma_new = gamma + phi_old - potential_fn(st)
+    delta_total = prop.delta_lp + gamma_delta_fn(ev, st, gamma, gamma_new)
+    u = _uniform(gen, delta_total.shape, events)
+    accepted = torch.log(u) < delta_total + prop.hastings
+    x_revert = torch.where(accepted[:, None], 0.0, prop.x_eff)
+    for i in range(mmax):
+        _apply_(ev, st, prop.locs[:, i], prop.t_dst[:, i], prop.t_src[:, i],
+                x_revert[:, i], target_id)
+        commute = evaluator.apply_commute(
+            commute, prop.locs[:, i], prop.t_dst[:, i], prop.t_src[:, i],
+            x_revert[:, i], target_id)
+    logp = current_logp + torch.where(accepted, delta_total, 0.0)
+    info = EventMoveInfo(
+        is_accepted=accepted, target_log_prob=logp,
+        m=prop.locs.to(dtype), t=prop.t_src.to(dtype),
+        delta_t=prop.d.to(dtype), x_star=prop.x_eff,
+    )
+    return (ev, st, commute, logp, torch.where(accepted, gamma_new, gamma),
+            info)
 
 
-def compensated_pair_move_step(*args, **kwargs):
-    """The gamma0-compensated pair move (not ported yet)."""
-    raise NotImplementedError(
-        "compensated_pair_move_step is not ported yet (off-default kernels)")
+def compensated_pair_move_step(gen, events, state, current_logp, evaluator,
+                               gamma, potential_fn, gamma_delta_fn,
+                               dmax: int, mmax: int, nmax: int,
+                               move_decay=0.9, x_decay=1.0, commute=None,
+                               guide_logits=None):
+    """Episode translation (:func:`pair_move_step`) with the ridge
+    compensation of :func:`compensated_move_step`: an E->I event moving
+    by d changes infectious person-time by -x*d, and the translation of
+    gamma keeps the expected removals put, so one joint move strides the
+    (gamma0, person-time) ridge.  Reversible as the compensated move; the
+    event-side Hastings ratio is the pair kernel's.
+
+    Returns ``(events, state, commute, logp, gamma, EventMoveInfo)``;
+    ``t`` traces t2 and ``delta_t`` traces d."""
+    dtype = events.dtype
+    phi_old = potential_fn(state)
+    prop = _propose_pairs(gen, events, state, evaluator, dmax, mmax, nmax,
+                          move_decay, x_decay, commute=commute,
+                          guide_logits=guide_logits)
+    gamma_new = gamma + phi_old - potential_fn(prop.state)
+    delta_total = prop.delta_lp + gamma_delta_fn(prop.events, prop.state,
+                                                 gamma, gamma_new)
+    u = _uniform(gen, delta_total.shape, events)
+    accepted = torch.log(u) < delta_total + prop.hastings
+    ev, st, cm = _revert_pairs(prop, accepted, evaluator)
+    logp = current_logp + torch.where(accepted, delta_total, 0.0)
+    info = EventMoveInfo(
+        is_accepted=accepted, target_log_prob=logp,
+        m=prop.locs.to(dtype), t=prop.t2.to(dtype),
+        delta_t=prop.d.to(dtype), x_star=prop.x_eff,
+    )
+    return ev, st, cm, logp, torch.where(accepted, gamma_new, gamma), info

@@ -7,10 +7,11 @@ fused sweep runs the multiscans as one CUDA kernel launch
 (:mod:`covid19uk_tpu_torch.ops.fused_sweep`) with the pair moves after
 it; the unfused sweep (:func:`event_sweep`) runs the kernels of
 :mod:`covid19uk_tpu_torch.inference.event_kernels` in order, with the
-commute threaded through them at M >= 1024.  Chains are the leading
-dimension of every tensor.  The gamma0-compensated kernels and the gamma
-Gibbs step are later slices of the port and raise
-``NotImplementedError``.
+commute threaded through them at M >= 1024, and with the options that
+the fused sweep refuses: the gamma0-compensated moves
+(``compensate_gamma0``, ``pair_compensate_gamma0``) and, after the
+sweep, the gamma Gibbs refresh (``gamma_gibbs``).  Chains are the leading
+dimension of every tensor.
 """
 
 from typing import NamedTuple
@@ -20,12 +21,19 @@ import torch
 from covid19uk_tpu_torch.inference import hmc
 from covid19uk_tpu_torch.inference.event_kernels import (
     EventMoveInfo,
+    compensated_move_step,
+    compensated_pair_move_step,
     event_move_step,
     occult_step,
     pair_move_step,
 )
+from covid19uk_tpu_torch.inference.gamma_gibbs import (
+    GammaGibbsInfo,
+    gamma_gibbs_step,
+)
 from covid19uk_tpu_torch.inference.likelihood import (
     WindowedEvaluator,
+    _rate_diff_no_lgamma,
     make_context,
 )
 from covid19uk_tpu_torch.models import seir
@@ -55,11 +63,6 @@ class HMCTunables(NamedTuple):
     x_decay_ei: object = None
 
 
-class GammaGibbsInfo(NamedTuple):
-    is_accepted: torch.Tensor
-    log_accept_ratio: torch.Tensor
-
-
 class StepTrace(NamedTuple):
     """Per-draw trace, the JAX package's layout with a leading chain dim."""
 
@@ -68,9 +71,9 @@ class StepTrace(NamedTuple):
     move_ei: EventMoveInfo
     occult_se: EventMoveInfo
     occult_ei: EventMoveInfo
-    comp_ei: EventMoveInfo  # zeros: compensate_gamma0 is not ported
+    comp_ei: EventMoveInfo  # zeros when compensate_gamma0 is off
     pair: EventMoveInfo  # zeros when num_pair_updates == 0
-    gamma: GammaGibbsInfo  # zeros: gamma_gibbs is not ported
+    gamma: GammaGibbsInfo  # zeros when gamma_gibbs is off
 
 
 class EventKernelConfig(NamedTuple):
@@ -203,7 +206,9 @@ class SweepResult(NamedTuple):
     commute: torch.Tensor  # threaded, or the input commute when unthreaded
     logp: torch.Tensor
     infos: tuple  # EventMoveInfo of the last multiscan: the four kernels
-    pair: EventMoveInfo  # and the last pair move
+    pair: EventMoveInfo  # the last pair move
+    comp: EventMoveInfo  # and the last compensated move
+    gamma0: torch.Tensor  # [C] after the compensated moves (None: no input)
 
 
 def _decay(override, default):
@@ -225,16 +230,58 @@ def pair_sweep(model, cfg, ctx, events, state, commute, logp, generator,
     return events, state, commute, logp, info
 
 
+def moves_gamma0(cfg):
+    """Whether a resolved config's sweep moves gamma0 (a compensated move
+    or a compensated pair move runs)."""
+    return cfg.compensate_gamma0 or (cfg.num_pair_updates > 0
+                                     and cfg.pair_compensate_gamma0)
+
+
+def _potential(state):
+    """``[C]`` log infectious person-time: the gamma0 likelihood ridge is
+    exp(gamma0) * PT ~ the removals."""
+    return torch.log(torch.clamp(torch.sum(state[..., 2], dim=(-2, -1)),
+                                 min=1.0))
+
+
+def _gamma_delta(live_rate):
+    """The compensated kernels' ``gamma_delta_fn`` at the I->R rates
+    ``live_rate [C, T]``: every gamma0-dependent term at the proposed
+    events, the I->R likelihood (rate-only: the lgammas cancel) and the
+    N(0, 100) prior."""
+
+    def gamma_delta(ev_new, st_new, g, g_new):
+        r_old = live_rate[:, None, :]
+        r_new = r_old * torch.exp(g_new - g)[:, None, None]
+        d_ir = torch.sum(_rate_diff_no_lgamma(st_new[..., 2], ev_new[..., 2],
+                                              r_old, r_new), dim=(-2, -1))
+        return d_ir - 0.5 * (g_new**2 - g**2) / 100.0**2
+
+    return gamma_delta
+
+
+def _live_rate(rate_ir_t, g0, g0_at_rate):
+    """The I->R rates ``[C, T]`` at gamma0 ``g0``, from rates computed at
+    ``g0_at_rate``."""
+    return rate_ir_t * torch.exp(g0 - g0_at_rate)[:, None]
+
+
 def event_sweep(model, cfg, ctx, events, state, commute, logp, tune,
-                generator):
-    """The unfused sweep: U multiscans of move S->E, move E->I, occult
-    S->E, occult E->I and ``num_pair_updates`` pair moves, on every chain.
+                generator, gamma0=None):
+    """The unfused sweep on every chain: U multiscans of move S->E, move
+    E->I, occult S->E, occult E->I, then ``num_pair_updates`` pair moves
+    (gamma0-compensated with ``pair_compensate_gamma0``), then with
+    ``compensate_gamma0`` ``num_compensated_updates`` compensated E->I
+    moves.
 
     ``cfg`` is a resolved :class:`EventKernelConfig`; ``ctx`` the
     :class:`LikelihoodContext` at the chains' parameters; ``state`` and
     ``commute`` consistent with ``events``, which the guide weights come
     from.  With ``cfg.thread_commute`` the kernels slice the commute and
-    rank-1 update it; otherwise every windowed delta recomputes it."""
+    rank-1 update it; otherwise every windowed delta recomputes it.
+    ``gamma0 [C]`` is the chains' gamma0 at ``ctx``, needed by the
+    compensated moves: they move it, and every later kernel sees the I->R
+    rates at its live value."""
     T = model.num_steps
     occ_guide = (case_guide_logits(events, cfg.t_range,
                                    cfg.occult_guide_floor)
@@ -251,7 +298,17 @@ def event_sweep(model, cfg, ctx, events, state, commute, logp, tune,
     occ_eval = WindowedEvaluator(ctx=ctx, window=T - cfg.t_range[0])
     cm = commute if cfg.thread_commute else None
     pair = _zero_info(logp, cfg.pair_mmax)
+    comp = _zero_info(logp, cfg.mmax)
+    g0, rate_ir_t = gamma0, ctx.rate_ir_t
+    compensated = moves_gamma0(cfg)
+    if compensated and g0 is None:
+        raise ValueError("the compensated moves need the chains' gamma0")
     for _ in range(cfg.num_event_time_updates):
+        if compensated:
+            # gamma0 may have moved in the last multiscan
+            ctx = ctx._replace(rate_ir_t=rate_ir_t)
+            move_eval = WindowedEvaluator(ctx=ctx, window=move_eval.window)
+            occ_eval = WindowedEvaluator(ctx=ctx, window=occ_eval.window)
         events, state, cm, logp, i_mse = event_move_step(
             generator, events, state, logp, move_eval, 0, cfg.dmax,
             cfg.mmax, cfg.nmax, md_se, xd_se, commute=cm,
@@ -268,12 +325,38 @@ def event_sweep(model, cfg, ctx, events, state, commute, logp, tune,
             generator, events, state, logp, occ_eval, 1, cfg.t_range,
             cfg.occult_nmax, cfg.x_decay, guide_logits=occ_guide,
             commute=cm)
-        if cfg.num_pair_updates > 0:
+        if cfg.num_pair_updates > 0 and cfg.pair_compensate_gamma0:
+            g0_at_rate = g0
+            for _ in range(cfg.num_pair_updates):
+                live = _live_rate(rate_ir_t, g0, g0_at_rate)
+                ev_live = WindowedEvaluator(
+                    ctx=ctx._replace(rate_ir_t=live), window=move_eval.window)
+                events, state, cm, logp, g0, pair = (
+                    compensated_pair_move_step(
+                        generator, events, state, logp, ev_live, g0,
+                        _potential, _gamma_delta(live), cfg.dmax,
+                        cfg.pair_mmax, cfg.nmax, cfg.pair_move_decay,
+                        cfg.x_decay, commute=cm, guide_logits=move_guide))
+            rate_ir_t = _live_rate(rate_ir_t, g0, g0_at_rate)
+        elif cfg.num_pair_updates > 0:
             events, state, cm, logp, pair = pair_sweep(
                 model, cfg, ctx, events, state, cm, logp, generator,
                 cfg.num_pair_updates, guide_logits=move_guide)
+        if cfg.compensate_gamma0:
+            g0_at_rate = g0
+            for _ in range(cfg.num_compensated_updates):
+                # an accept in an earlier repeat moved the rates
+                live = _live_rate(rate_ir_t, g0, g0_at_rate)
+                ev_live = WindowedEvaluator(
+                    ctx=ctx._replace(rate_ir_t=live), window=move_eval.window)
+                events, state, cm, logp, g0, comp = compensated_move_step(
+                    generator, events, state, logp, ev_live, g0, _potential,
+                    _gamma_delta(live), 1, cfg.dmax, cfg.mmax, cfg.nmax,
+                    cfg.move_decay, cfg.x_decay, commute=cm,
+                    guide_logits=move_guide)
+            rate_ir_t = _live_rate(rate_ir_t, g0, g0_at_rate)
     return SweepResult(events, state, cm if cfg.thread_commute else commute,
-                       logp, (i_mse, i_mei, i_ose, i_oei), pair)
+                       logp, (i_mse, i_mei, i_ose, i_oei), pair, comp, g0)
 
 
 def make_mcmc_step(model, num_leapfrog_steps: int,
@@ -292,12 +375,7 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
         raise ValueError(
             f"t_range={cfg.t_range} must satisfy 0 <= lo < hi <= T={T}"
         )
-    if cfg.compensate_gamma0 or cfg.gamma_gibbs or (
-            cfg.num_pair_updates > 0 and cfg.pair_compensate_gamma0):
-        raise NotImplementedError(
-            "compensate_gamma0 / pair_compensate_gamma0 / gamma_gibbs are "
-            "not ported yet (the off-default kernels slice)"
-        )
+    compensated = moves_gamma0(cfg)
     sweep_cfg = sweep_config(cfg) if cfg.fused_sweep else None
 
     def step(state: ChainState, tune: HMCTunables, generator=None,
@@ -335,13 +413,23 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
         )
 
         if not cfg.fused_sweep:
+            # gamma0 is u[:, 3] (identity bijection)
             res = event_sweep(model, cfg, ctx0, state.events, full_state,
-                              commute, logp0, tune, generator)
-            trace = StepTrace(
-                hmc_info, *res.infos,
-                comp_ei=_zero_info(res.logp, cfg.mmax), pair=res.pair,
-                gamma=gamma,
-            )
+                              commute, logp0, tune, generator,
+                              gamma0=u_new[:, 3] if compensated else None)
+            if compensated or cfg.gamma_gibbs:
+                u_new = u_new.clone()  # written below: a tensor of its own
+            if compensated:
+                u_new[:, 3] = res.gamma0
+            if cfg.gamma_gibbs:
+                wd = model._gather_t(model.data.weekday, model._t_abs())
+                g_new, gamma = gamma_gibbs_step(
+                    generator, u_new[:, 3:5],
+                    torch.sum(res.events[..., 2], dim=1),
+                    torch.sum(res.state[..., 2], dim=1), wd)
+                u_new[:, 3:5] = g_new
+            trace = StepTrace(hmc_info, *res.infos, comp_ei=res.comp,
+                              pair=res.pair, gamma=gamma)
             return ChainState(u=u_new, events=res.events), trace
 
         decays = torch.stack(

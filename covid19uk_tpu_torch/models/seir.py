@@ -24,37 +24,49 @@ NU = 0.28  # E->I rate, fixed
 SOURCE_STATES = [0, 1, 2]
 
 
-def _stoich(like):
-    return torch.as_tensor(STOICHIOMETRY, dtype=like.dtype, device=like.device)
+def _stoich(like, stoichiometry=None):
+    return torch.as_tensor(
+        STOICHIOMETRY if stoichiometry is None else stoichiometry,
+        dtype=like.dtype, device=like.device)
 
 
-def compute_state(initial_state, events):
+def compute_state(initial_state, events, stoichiometry=None):
     """``state[..., m, t, s] = initial_state[..., m, s]
-    + sum_{t' < t} events[..., m, t', x] S[x, s]`` (exclusive cumsum)."""
-    deltas = torch.einsum("...mtx,xs->...mts", events, _stoich(events))
+    + sum_{t' < t} events[..., m, t', x] S[x, s]`` (exclusive cumsum);
+    ``stoichiometry [X, S]`` defaults to the SEIR ``STOICHIOMETRY``."""
+    deltas = torch.einsum("...mtx,xs->...mts", events,
+                          _stoich(events, stoichiometry))
     cum = torch.cumsum(deltas, dim=-2)
     cum = torch.cat([torch.zeros_like(cum[..., :1, :]), cum[..., :-1, :]], -2)
     return initial_state.to(events.dtype)[..., :, None, :] + cum
 
 
+def transition_source_counts(initial_state, events, stoichiometry=None):
+    """Source-compartment counts ``n[..., m, t, x]`` of each transition:
+    the binomial trial counts of S->E, E->I and I->R at each (m, t)."""
+    return compute_state(initial_state, events,
+                         stoichiometry)[..., SOURCE_STATES]
+
+
 def chain_binomial_log_prob(events, rates, initial_state,
-                            time_delta=TIME_DELTA):
+                            stoichiometry=None, time_delta=TIME_DELTA):
     """``sum_{m,t,x} Binomial(src_state, 1 - exp(-rate dt)).log_prob(y)``;
     -inf for an event tensor that is not a valid counting process."""
-    n = compute_state(initial_state, events)[..., SOURCE_STATES]
+    n = transition_source_counts(initial_state, events, stoichiometry)
     logpmf = binomial_log_pmf_from_rate(n, events, rates * time_delta)
     return torch.sum(logpmf, dim=(-3, -2, -1))
 
 
 def chain_binomial_sample(generator, rate_fn, initial_state, initial_step,
-                          num_steps, time_delta=TIME_DELTA):
+                          num_steps, stoichiometry=None,
+                          time_delta=TIME_DELTA):
     """Forward-simulates the process: ``rate_fn(t, state[..., M, S]) ->
     rates[..., M, X]`` at absolute day ``t``.  Returns ``[..., M, T, X]``.
 
     Draws come from ``torch.binomial`` with the given generator, so they
     differ from the JAX package's draws for the same seed."""
     state = initial_state
-    stoich = _stoich(state)
+    stoich = _stoich(state, stoichiometry)
     draws_t = []
     for t in range(initial_step, initial_step + num_steps):
         rates = rate_fn(t, state)

@@ -9,6 +9,7 @@ with a card and no JAX:
 Without a card the test skips (the CUDA kernel has no CPU mode).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -189,3 +190,64 @@ def test_cuda_posterior_verbs_match_the_cpu():
             seir.compute_state(torch.as_tensor(init),
                                torch.as_tensor(samples["seir"]))[
                 ..., start, :], rtol=1e-6, atol=0.0)
+
+
+def _gamma_inputs(C, T, dtype, device):
+    """UK-sized daily removals and exposures of C chains, starts near and
+    off their conditional modes, and injected draws, from a numpy seed."""
+    from covid19uk_tpu_torch.inference.gamma_gibbs import GammaNoise
+
+    rng = np.random.default_rng(0)
+    wd = (np.arange(T) % 7 < 5).astype(float)
+    K = rng.integers(200, 3000, (C, T)).astype(float)
+    N = K * rng.uniform(3.0, 8.0, (C, T))
+    g = np.stack([np.log(-np.log1p(-K.sum(1) / N.sum(1))), np.zeros(C)], 1)
+    g += rng.normal(0.0, 0.05, (C, 2))
+    draws = (rng.normal(size=(C, 2)), rng.chisquare(5.0, C),
+             rng.uniform(size=C))
+
+    def t(a):
+        return torch.tensor(a, dtype=dtype, device=device)
+
+    return (t(g), t(K), t(N), t(wd - wd.mean()),
+            GammaNoise(*[t(a) for a in draws]))
+
+
+@pytest.mark.gpu
+def test_cuda_gamma_refresh_and_gp_conditional_match_the_cpu():
+    """The gamma refresh (injected draws) and the GP conditional in
+    float64 on the card against float64 on the CPU, rtol 1e-9: the same
+    decisions, the same draws."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the entry points run on it")
+    from covid19uk_tpu_torch.inference.gamma_gibbs import gamma_gibbs_step
+    from covid19uk_tpu_torch.models import gp
+
+    outs = []
+    for dev in ("cuda", "cpu"):
+        *args, noise = _gamma_inputs(64, 120, torch.float64, dev)
+        outs.append(gamma_gibbs_step(None, *args, noise=noise))
+    got, want = outs
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[1].is_accepted.cpu(), want[1].is_accepted)
+    assert bool(want[1].is_accepted.any())
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-9, atol=0.0)
+    torch.testing.assert_close(got[1].log_accept_ratio.cpu(),
+                               want[1].log_accept_ratio, rtol=1e-9,
+                               atol=1e-9)
+
+    x = np.linspace(0.0, 4.0, 40)[:, None]
+    y = np.sin(x[:, 0])
+    xs = np.linspace(-0.5, 4.5, 25)[:, None]
+    posts = []
+    for dev in ("cuda", "cpu"):
+        prior = gp.GaussianProcess(gp.matern32_kernel(1.3, 0.8),
+                                   torch.tensor(x, device=dev), 0.05)
+        posts.append(gp.conditional_gp(prior, torch.tensor(y, device=dev),
+                                       torch.tensor(xs, device=dev)))
+    assert posts[0].mean.device.type == "cuda"
+    for a, b in zip(posts[0], posts[1]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-9, atol=1e-12)
+    probe = posts[1].mean + 0.1
+    torch.testing.assert_close(posts[0].log_prob(probe.cuda()).cpu(),
+                               posts[1].log_prob(probe), rtol=1e-9, atol=0.0)

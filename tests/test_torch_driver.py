@@ -216,6 +216,32 @@ def test_ni_posterior_reads_through_jax(ni_posterior, tmp_path):
     assert d["initial_state"].shape == (11, 4)
 
 
+def test_ni_mcmc_with_the_off_default_kernels(tmp_path):
+    """``mcmc`` on the NI data with the gamma0-compensated moves (pair
+    moves in warmup) and the gamma refresh: their results have the JAX
+    driver's paths, dtypes and per-draw shapes, and both accept."""
+    out = str(tmp_path / "posterior.h5")
+    tdriver.mcmc(NI_DATA, out, dict(
+        num_chains=8, dtype="float32", seed=4, num_bursts=1,
+        num_burst_samples=4, thin=1, warmup=TINY_WARMUP,
+        compensate_gamma0=True, num_compensated_updates=1,
+        pair_compensate_gamma0=True, gamma_gibbs=True), device="cpu")
+    groups = ("results/gamma/", "results/move/E->I_compensated/")
+    with h5py.File(out, "r") as f, h5py.File(NI_POSTERIOR) as g:
+        got, want = _datasets(f), _datasets(g)
+        names = sorted(n for n in want if n.startswith(groups))
+        assert sorted(n for n in got if n.startswith(groups)) == names
+        assert len(names) == 5
+        for name in names:
+            assert got[name].dtype == want[name].dtype, name
+            assert got[name].shape == (WARM + 4,) + want[name].shape[1:], name
+        assert f["results/gamma/is_accepted"][:].mean() > 0.0
+        assert f["results/move/E->I_compensated/is_accepted"][:].any()
+        assert np.isfinite(f["results/gamma/log_accept_ratio"][:]).any()
+        for name in ("samples/gamma0", "samples/gamma1"):
+            assert np.isfinite(f[name][:]).all()
+
+
 class Preempted(Exception):
     pass
 

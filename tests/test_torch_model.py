@@ -143,3 +143,36 @@ def test_sample_seir_gives_valid_events():
     st = tseir.compute_state(tm.initial_state, ev)
     assert bool((ev >= 0).all()) and bool((st >= 0).all())
     assert torch.isfinite(tm.log_prob(batched, ev)).all()
+
+
+@pytest.mark.parametrize("stoich", ["default", "reversed"])
+def test_transition_source_counts_and_stoichiometry_match_jax(stoich):
+    """transition_source_counts, compute_state and the log-density with
+    the default and with a caller's stoichiometry, against JAX."""
+    from covid19uk_tpu.models import seir as jseir
+
+    rng = np.random.default_rng(7)
+    S = None if stoich == "default" else np.array(
+        [[0, 0, -1, 1], [0, 1, -1, 0], [1, -1, 0, 0]], np.float32)
+    init = rng.integers(50, 200, (2, 5, 4)).astype(np.float64)
+    ev = rng.integers(0, 4, (2, 5, 9, 3)).astype(np.float64)
+    rates = rng.uniform(0.01, 0.5, (2, 5, 9, 3))
+    got = tseir.transition_source_counts(torch.tensor(init),
+                                         torch.tensor(ev), S)
+    want = jseir.transition_source_counts(init, ev, S)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        tseir.compute_state(torch.tensor(init), torch.tensor(ev), S).numpy(),
+        np.asarray(jseir.compute_state(init, ev, S)))
+    np.testing.assert_allclose(
+        tseir.chain_binomial_log_prob(torch.tensor(ev), torch.tensor(rates),
+                                      torch.tensor(init), S).numpy(),
+        np.asarray(jseir.chain_binomial_log_prob(ev, rates, init, S)),
+        rtol=1e-12)
+    # the JAX package's top-level names, the model API among them
+    import covid19uk_tpu
+    import covid19uk_tpu_torch
+
+    missing = [n for n in covid19uk_tpu.__all__ if n != "__version__"
+               and not hasattr(covid19uk_tpu_torch, n)]
+    assert missing == []

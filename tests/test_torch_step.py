@@ -1,5 +1,6 @@
 """Port parity for the whole sampling transition (HMC + fused sweep)
 against JAX make_mcmc_step(fused_sweep="always", num_pair_updates=0), the
+transition with the gamma0-compensated moves and the gamma refresh, the
 port's config checks, its import boundary and the chip smoke rehearsal."""
 
 import json
@@ -105,15 +106,91 @@ def test_config_checks():
                 dict(occult_guided="yes"), dict(t_range=(0, 99))):
         with pytest.raises(ValueError):
             make(**bad)
+    gen = torch.Generator().manual_seed(0)
+    st = tsyn.initial_chain_state(tm, gen)
+    state = tg.ChainState(st.u[None], st.events[None])
+    tune = tg.HMCTunables(step_size=torch.tensor(0.005),
+                          inv_mass_diag=torch.ones(st.u.shape[0]))
     for later in (dict(fused_sweep="never", compensate_gamma0=True),
                   dict(fused_sweep="never", gamma_gibbs=True),
                   dict(fused_sweep="never", num_pair_updates=1,
                        pair_compensate_gamma0=True)):
-        with pytest.raises(NotImplementedError):
-            make(**later)
+        s2, tr = make(**later)(state, tune, gen)  # builds and steps
+        assert bool(torch.isfinite(s2.u).all())
+        assert bool(torch.isfinite(tr.comp_ei.target_log_prob).all())
     make()  # the slices' configurations build
     make(fused_sweep="never", num_pair_updates=1, move_guided="always")
     make(num_pair_updates=1)
+
+
+def _compensated_chains(C=4, M=8, T=14):
+    tm = tsyn.build_synthetic_model(M, T, torch.float64, device="cpu")
+    gen = torch.Generator().manual_seed(2)
+    st = tsyn.initial_chain_state(tm, gen)
+    u = st.u.expand(C, -1).clone()
+    u[:, :6] += 0.05 * torch.randn((C, 6), generator=gen,
+                                   dtype=torch.float64)
+    state = tg.ChainState(u, st.events.expand(C, -1, -1, -1).clone())
+    tune = tg.HMCTunables(step_size=torch.tensor(0.001, dtype=torch.float64),
+                          inv_mass_diag=torch.ones(u.shape[1],
+                                                   dtype=torch.float64))
+    cfg = dict(dmax=6, mmax=2, nmax=8, occult_nmax=4,
+               num_event_time_updates=3, t_range=(T - 7, T),
+               num_pair_updates=1, fused_sweep="never",
+               compensate_gamma0=True, num_compensated_updates=2,
+               pair_compensate_gamma0=True)
+    return tm, state, tune, cfg
+
+
+@pytest.mark.parametrize("threaded", ["always", "never"])
+def test_compensated_step_keeps_logp_consistent(threaded):
+    """tests/test_inference.py's production check of the compensated
+    moves, 4 chains batched, float64: with two compensated moves and the
+    compensated pair move in each multiscan the moves accept, gamma0
+    moves, and the threaded logp after the last sweep equals the joint
+    density of the final state (rtol 1e-8, atol 1e-6): the live-rate
+    refresh, the u[:, 3] write-back and the windowed I->R/gamma0 deltas
+    end to end, with the commute threaded and recomputed."""
+    tm, state, tune, cfg = _compensated_chains()
+    step = tg.make_mcmc_step(tm, 4, tg.EventKernelConfig(
+        **cfg, thread_commute=threaded))
+    gen = torch.Generator().manual_seed(14)
+    acc, pair_acc = [], []
+    s = state
+    for _ in range(40):
+        s, tr = step(s, tune, gen)
+        acc.append(tr.comp_ei.is_accepted)
+        pair_acc.append(tr.pair.is_accepted)
+    assert float(torch.stack(acc).double().mean()) > 0.02
+    assert float(torch.stack(pair_acc).double().mean()) > 0.02
+    assert bool(((s.u[:, 3] - state.u[:, 3]).abs() > 1e-6).all())
+    np.testing.assert_allclose(
+        tr.comp_ei.target_log_prob.numpy(),
+        tm.joint_log_prob_unconstrained(s.u, s.events).numpy(),
+        rtol=1e-8, atol=1e-6)
+
+
+def test_gamma_refresh_changes_only_gamma():
+    """tests/test_gamma_gibbs.py's integration check: from the same
+    generator state, gamma_gibbs=True leaves the events and every
+    parameter but u[:, 3:5] as they are without it (its draws come after
+    the sweep's), accepts, and moves u[:, 3:5] where it accepts."""
+    tm, state, tune, cfg = _compensated_chains()
+    outs = []
+    for on in (False, True):
+        step = tg.make_mcmc_step(tm, 4, tg.EventKernelConfig(
+            **cfg, gamma_gibbs=on))
+        outs.append(step(state, tune, torch.Generator().manual_seed(9)))
+    (s_off, tr_off), (s_on, tr_on) = outs
+    assert torch.equal(s_off.events, s_on.events)
+    assert torch.equal(s_off.u[:, :3], s_on.u[:, :3])
+    assert torch.equal(s_off.u[:, 5:], s_on.u[:, 5:])
+    assert not bool(tr_off.gamma.is_accepted.any())
+    acc = tr_on.gamma.is_accepted
+    assert bool(acc.any())
+    moved = (s_on.u[:, 3:5] != s_off.u[:, 3:5]).all(-1)
+    assert torch.equal(moved, acc)
+    assert bool(torch.isfinite(tr_on.gamma.log_accept_ratio).all())
 
 
 def test_chain_state_and_step_on_cpu():
@@ -135,6 +212,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import sys, json\n"
         "import covid19uk_tpu_torch, covid19uk_tpu_torch.convert\n"
         "import covid19uk_tpu_torch.inference.gibbs\n"
+        "import covid19uk_tpu_torch.inference.gamma_gibbs\n"
+        "import covid19uk_tpu_torch.models.gp\n"
         "import covid19uk_tpu_torch.inference.event_kernels\n"
         "import covid19uk_tpu_torch.inference.likelihood\n"
         "import covid19uk_tpu_torch.ops._build\n"
@@ -192,4 +271,7 @@ def test_chip_smoke_rehearsal_on_cpu():
     assert "phase 6 driver on the CPU" in out.stdout
     assert "phase 7 driver on the CPU" in out.stdout
     assert "phase 8 posterior verbs on the CPU" in out.stdout
+    for part in ("9a", "9b", "9c"):
+        assert f"phase {part} " in out.stdout and f"phase {part} done" in \
+            out.stdout
     assert '"ok"' not in out.stdout

@@ -2,7 +2,7 @@
 """Runs the PyTorch/CUDA port (covid19uk_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # on a machine with a card
-    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-9; exits 3
+    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-10; exits 3
 
 Phases, one short line each:
   0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
@@ -80,10 +80,25 @@ Phases, one short line each:
      joint density (rtol 1e-8, atol 1e-6), and one gamma refresh with
      injected draws against float64 on the CPU (1e-5 relative, same
      decisions; float32's error printed).
-Then the kernels' JSON line (launches: K1 phase 6's, K2 phases 7 and 9b;
-phase 8 launches neither kernel, phase 9a must not launch K1) and, last,
-the result line.  Any failure exits non-zero, as does a run without a
-CUDA device.
+ 10. the chain-parallel driver over two ranks on the one card (gloo, a
+     file store, both ranks on cuda:0; the kernels built by phase 1):
+     (a) the dry run, one sharded transition a rank, checksums equal
+     across ranks; (b) the sharded UK transition of the 64 chains, 32 a
+     rank, fused sweep, on a StepNoise replay, against the one-process
+     transition on the same noise: events identical, u within rtol 1e-5
+     (the first differing chain printed); (c) run_mcmc with use_mesh on
+     phase 6's plan and chains: one K1 launch per transition on each rank,
+     the ranks start every window from the same pooled step size, every
+     window and burst from the same decays and the slow window from the
+     same pooled mass, rank 0's in-memory store holds all 64 chains;
+     each rank's ms/transition beside phase 6's; (d) 3 UK transitions
+     plain, through the MCMC driver's debug_nans check and wholly inside the
+     per-op NaN mode: equal draws, each one's ms/transition.  A failed
+     rank fails the run; no rank runs on the CPU.
+Then the kernels' JSON line (launches: K1 phase 6's and phase 10c's on
+both ranks, K2 phases 7 and 9b; phase 8 launches neither kernel, phase 9a
+must not launch K1) and, last, the result line.  Any failure exits
+non-zero, as does a run without a CUDA device.
 """
 
 import faulthandler
@@ -1396,9 +1411,393 @@ def phase_9c(torch, dev, M, T, C):
     say(f"phase 9c done ({time.perf_counter() - t0:.1f} s)")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the chain-parallel driver over two ranks on one device.
+# ---------------------------------------------------------------------------
+
+RANKS = 2  # phase 10's ranks (mesh_scale.py asks for more)
+NAN_TRANSITIONS = 3  # phase 10d
+STEP_SIZE = 0.005  # phases 3, 9c and 10: a step size that accepts at C=64
+
+
+def record_runners(driver, calls):
+    """Wraps the MCMC driver's window and burst runners so that each call
+    appends (kind, step sizes, inverse mass, decays) as it starts; returns
+    the originals."""
+    from covid19uk_tpu_torch.inference import dual_averaging
+
+    originals = driver.make_window_runner, driver.make_fixed_runner
+
+    def host(x):
+        return np.asarray(x.detach().cpu())
+
+    def note(kind, step_size, inv_mass, decays):
+        calls.append((kind, host(step_size), host(inv_mass),
+                      [float(d) for d in decays or ()]))
+
+    def window_runner(*a, **k):
+        run = originals[0](*a, **k)
+
+        def wrapped(state, da, wf, inv_mass, gen=None, decays=None):
+            note("window", dual_averaging.step_size(da), inv_mass, decays)
+            return run(state, da, wf, inv_mass, gen, decays)
+
+        return wrapped
+
+    def fixed_runner(*a, **k):
+        run = originals[1](*a, **k)
+
+        def wrapped(state, step_size, inv_mass, gen=None, decays=None):
+            note("burst", step_size, inv_mass, decays)
+            return run(state, step_size, inv_mass, gen, decays)
+
+        return wrapped
+
+    driver.make_window_runner, driver.make_fixed_runner = (window_runner,
+                                                           fixed_runner)
+    return originals
+
+
+def rank_worker(argv):
+    """One rank of phase 10b-c: ``--rank-worker <dir> <rank> <device>``
+    (sizes in ``<dir>/spec.json``).  10b: the sharded transition on the
+    parent's StepNoise, every chain's result to rank 0; 10c: ``run_mcmc``
+    with ``use_mesh`` on phase 6's plan, K1's launches and the wall time
+    counted on each rank, what each runner starts from recorded.  Writes
+    ``<dir>/rank<r>.pkl``."""
+    import pickle
+
+    tmp, rank, device = argv[0], int(argv[1]), argv[2]
+    faulthandler.dump_traceback_later(300, exit=True)
+    import torch
+
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    if device == "cpu":
+        torch.set_num_threads(1)  # tiny shapes; the ranks share the host
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from covid19uk_tpu_torch.inference import driver
+    from covid19uk_tpu_torch.inference.gibbs import (
+        ChainState, HMCTunables, StepNoise, make_mcmc_step)
+    from covid19uk_tpu_torch.parallel import distributed
+    from covid19uk_tpu_torch.parallel.mesh import chain_mesh
+    from covid19uk_tpu_torch.parallel.sharding import (
+        gather_chains, make_sharded_step, shard_chain_state, shard_tunables)
+
+    ranks = spec["ranks"]
+    distributed.initialize(f"file://{tmp}/store", ranks, rank)
+    try:
+        dev = distributed.local_device(device)
+        if dev.type != device:
+            raise AssertionError(f"rank {rank} on {dev}, not {device}")
+        sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
+                else (lambda: None))
+        Mm, Tt, Cc = spec["M"], spec["T"], spec["C"]
+        report = {"rank": rank, "device": str(dev), "name": (
+            torch.cuda.get_device_name(dev) if dev.type == "cuda"
+            else "cpu")}
+        mesh = chain_mesh()
+        model, state, _ = build_chains(torch, dev, Mm, Tt, Cc)
+
+        # 10b: the sharded step on the parent's inputs and noise
+        with np.load(os.path.join(tmp, "step.npz")) as z:
+            inp = {k: torch.as_tensor(z[k], device=dev) for k in z.files}
+        full = ChainState(u=inp["u"], events=inp["events"])
+        noise = StepNoise(inp["z"], inp["u_accept"], inp["tbl"], inp["ttbl"])
+        tune = HMCTunables(
+            step_size=torch.full((Cc, 1), STEP_SIZE, device=dev),
+            inv_mass_diag=torch.ones_like(full.u))
+        step = make_sharded_step(
+            make_mcmc_step(model, 16, event_config(Tt)), mesh)
+        reset_launches()
+        new, _ = step(shard_chain_state(full, mesh),
+                      shard_tunables(tune, mesh), None, noise)
+        sync()
+        report["step_launches"] = read_launches()["fused_sweep"]
+        report["step"] = gather_chains(
+            (new.u.cpu().numpy(), new.events.cpu().numpy()), mesh, dst=0)
+
+        # 10c: the driver over the ranks, phase 6's plan and chains
+        warmup, bursts, draws, thin = spec["plan"]
+        log_file = os.path.join(tmp, "run_log.jsonl") if rank == 0 else None
+        cfg = dict(num_chains=Cc, num_bursts=bursts, num_burst_samples=draws,
+                   thin=thin, store_warmup=False, warmup=warmup,
+                   autotune_acceptance=True, pooled_adaptation=True,
+                   use_mesh=True, log_file=log_file)
+        store = MemoryPosterior() if rank == 0 else None
+        calls = []
+        originals = record_runners(driver, calls)
+        reset_launches()
+        sync()
+        t0 = time.perf_counter()
+        out = driver.run_mcmc(model, state, uk_driver_config(Tt), cfg, store,
+                              num_chains=Cc, seed=0, device=dev)
+        sync()
+        report["wall_s"] = time.perf_counter() - t0
+        driver.make_window_runner, driver.make_fixed_runner = originals
+        report["launches"] = read_launches()["fused_sweep"]
+        report["calls"] = calls
+        report["returned_store"] = out is not None
+        if rank == 0:
+            report["store"] = {k: v.shape for k, v in store.data.items()}
+            report["events_ok"] = bool(
+                (store["samples/seir"] >= 0).all()
+                and (store["samples/seir"] == np.round(
+                    store["samples/seir"])).all())
+            with open(log_file) as f:
+                report["log"] = [json.loads(line) for line in f]
+        with open(os.path.join(tmp, f"rank{rank}.pkl"), "wb") as f:
+            pickle.dump(report, f)
+        say(f"phase 10 rank {rank} on {report['name']} ({dev}) done")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def spawn_ranks(tmp, device, ranks):
+    """Runs ``ranks`` phase-10 ranks to their end and relays their
+    ``phase 10`` lines; raises with their output if one fails."""
+    from covid19uk_tpu_torch.parallel.distributed import run_ranks
+
+    outs = run_ranks(lambda r: [
+        sys.executable, os.path.abspath(__file__), "--rank-worker", tmp,
+        str(r), device], ranks)
+    for out in outs:
+        for line in out.strip().splitlines():
+            if line.startswith("phase 10"):
+                say(line)
+
+
+def phase_10(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS):
+    """Phase 10: ``ranks`` ranks on ``dev`` (a file store; on one card
+    all on ``cuda:0`` over gloo, on as many cards as ranks one each over
+    NCCL).  10a: the dry run (``parallel/distributed.py:
+    spawn_dryrun``): one sharded transition a rank, checksums equal; 10b:
+    the sharded transition of C chains (C/2 a rank, fused sweep) on a
+    StepNoise replay against the one-process transition on the same noise:
+    events identical, u within rtol 1e-5, one K1 launch a rank; 10c:
+    ``run_mcmc`` with ``use_mesh`` on ``plan``: one K1 launch per
+    transition on each rank, the ranks start every window from the same
+    pooled step size and every window and burst from the same decays, the
+    slow window from the same pooled mass, rank 0's store holds all C
+    chains, final-window HMC acceptance in (0, 1]; prints each rank's ms
+    per transition beside phase 6's.  Returns (K1 launches of 10c on all
+    ranks, its transitions, its bursts' ms per transition)."""
+    import pickle
+
+    from covid19uk_tpu_torch.inference.gibbs import (
+        HMCTunables, StepNoise, make_mcmc_step, resolve_event_config,
+        sweep_config)
+    from covid19uk_tpu_torch.inference.warmup import WarmupSchedule
+    from covid19uk_tpu_torch.ops import fused_sweep as fs
+    from covid19uk_tpu_torch.parallel.distributed import spawn_dryrun
+
+    t0 = time.perf_counter()
+    checksum, out = spawn_dryrun(ranks, dev.type)
+    say(f"phase 10a dry run over {ranks} ranks: checksum {checksum!r} on "
+        f"every rank; {out.strip().splitlines()[-1]} "
+        f"({time.perf_counter() - t0:.1f} s)")
+
+    problems = []
+    with tempfile.TemporaryDirectory() as tmp:
+        model, state, gen = build_chains(torch, dev, M, T, C)
+        scfg = sweep_config(resolve_event_config(event_config(T), M))
+        P = state.u.shape[1]
+        tbl, ttbl = fs.draw_tables(gen, C, M, T, scfg, dev)
+        noise = StepNoise(torch.randn((C, P), generator=gen, device=dev),
+                          torch.rand((C,), generator=gen, device=dev),
+                          tbl, ttbl)
+        np.savez(os.path.join(tmp, "step.npz"),
+                 u=state.u.cpu().numpy(), events=state.events.cpu().numpy(),
+                 z=noise.z.cpu().numpy(), u_accept=noise.u_accept.cpu()
+                 .numpy(), tbl=tbl.cpu().numpy(), ttbl=ttbl.cpu().numpy())
+        tune = HMCTunables(
+            step_size=torch.full((C, 1), STEP_SIZE, device=dev),
+            inv_mass_diag=torch.ones_like(state.u))
+        step = make_mcmc_step(model, 16, event_config(T))
+        want, _ = step(state, tune, None, noise)
+        want_u, want_ev = want.u.cpu().numpy(), want.events.cpu().numpy()
+        # the same transition in batches of C/4 on one device: what a
+        # smaller batch alone changes in float32
+        batch = max(1, C // 4)
+
+        def rows(x, b):
+            return type(x)(*[None if v is None else v[b:b + batch]
+                             for v in x])
+
+        split = [step(rows(state, b), rows(tune, b), None, rows(noise, b))[0]
+                 for b in range(0, C, batch)]
+        split_u = torch.cat([x.u for x in split]).cpu().numpy()
+        split_ev = torch.cat([x.events for x in split]).cpu().numpy()
+        del model, state, want, split
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(dict(M=M, T=T, C=C, plan=plan, ranks=ranks), f)
+        t1 = time.perf_counter()
+        spawn_ranks(tmp, dev.type, ranks)
+        wall = time.perf_counter() - t1
+        reports = []
+        for r in range(ranks):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                reports.append(pickle.load(f))
+
+    # 10b
+    got_u, got_ev = reports[0]["step"]
+
+    def compare(u, ev):
+        """(chains whose events differ, u's max relative difference, the
+        first u entry off by more than rtol 1e-5 as (chain, index, got,
+        want) or None)."""
+        diff = np.nonzero((ev != want_ev).reshape(C, -1).any(1))[0]
+        rel = float(np.max(np.abs(u - want_u)
+                           / np.maximum(np.abs(want_u), 1e-30)))
+        bad = np.argwhere(~np.isclose(u, want_u, rtol=1e-5, atol=0.0))
+        first = None if not len(bad) else (
+            int(bad[0, 0]), int(bad[0, 1]), float(u[tuple(bad[0])]),
+            float(want_u[tuple(bad[0])]))
+        return diff, rel, first, len({int(c) for c in bad[:, 0]})
+
+    diff, rel, first, n_bad = compare(got_u, got_ev)
+    if len(diff):
+        problems.append(f"10b: events of {len(diff)} chains differ, first "
+                        f"chain {int(diff[0])}")
+    if first is not None:
+        problems.append(f"10b: u of {n_bad} chains off by more than rtol "
+                        f"1e-5; first (chain, index, got, want) {first}")
+    on_card = dev.type == "cuda"
+    if on_card and any(r["step_launches"] != 1 for r in reports):
+        problems.append(f"10b: K1 launches per rank "
+                        f"{[r['step_launches'] for r in reports]}, not 1")
+    say(f"phase 10b sharded transition of {C} chains ({C // ranks} a rank, "
+        f"M={M}, T={T}) against the one-process transition on the same "
+        f"StepNoise: events of {C - len(diff)} of {C} chains identical, u "
+        f"max relative difference {rel!r} (bitwise equal: "
+        f"{bool(np.array_equal(got_u, want_u))}), K1 launches per rank "
+        f"{[r['step_launches'] for r in reports]}")
+    s_diff, s_rel, s_first, s_bad = compare(split_u, split_ev)
+    say(f"phase 10b the one-process transition in {C // batch} batches of "
+        f"{batch} on "
+        f"one device against one batch of {C}: events of {C - len(s_diff)}"
+        f" of {C} chains identical, u max relative difference {s_rel!r}, "
+        f"{s_bad} chains off by more than rtol 1e-5 (first {s_first}); the "
+        f"ranks' u bitwise equal to it: "
+        f"{bool(np.array_equal(got_u, split_u))}")
+
+    # 10c
+    warmup, bursts, draws, thin = plan
+    transitions = WarmupSchedule(**warmup).total + bursts * draws
+    launches = [r["launches"] for r in reports]
+    if on_card and launches != [transitions] * ranks:
+        problems.append(f"10c: K1 launches per rank {launches} in "
+                        f"{transitions} transitions each")
+    devices = [f"cuda:{r % torch.cuda.device_count()}" if on_card else "cpu"
+               for r in range(ranks)]
+    if [r["device"] for r in reports] != devices:  # no rank on another
+        problems.append(f"10c: rank devices {[r['device'] for r in reports]}")
+    a = reports[0]["calls"]  # every rank against rank 0
+    for b in (r["calls"] for r in reports[1:]):
+        if [c[0] for c in a] != [c[0] for c in b]:
+            problems.append("10c: the ranks ran different windows and bursts")
+        for i, (ca, cb) in enumerate(zip(a, b)):
+            if ca[3] != cb[3]:
+                problems.append(f"10c: call {i} decays {ca[3]} vs {cb[3]}")
+            if ca[0] == "window" and not (np.array_equal(ca[1], cb[1])
+                                          and len(set(ca[1].tolist())) == 1):
+                problems.append(f"10c: window {i} pooled step sizes differ")
+        if len(a) > 1 and not (np.array_equal(a[1][2], b[1][2])
+                               and (a[1][2] == a[1][2][0]).all()):
+            problems.append("10c: the slow window's pooled mass differs")
+    stored = bursts * draws // thin
+    shapes = reports[0]["store"]
+    if (tuple(shapes["samples/seir"]) != (stored, C, M, T, 3)
+            or tuple(shapes["samples/psi"]) != (stored, C)
+            or not reports[0]["events_ok"]):
+        problems.append(f"10c: rank 0's store {shapes['samples/seir']}")
+    if [r["returned_store"] for r in reports] != [True] + [False] * (
+            ranks - 1):
+        problems.append("10c: a store on a rank other than 0")
+    log = reports[0]["log"]
+    final = [e for e in log if e["event"] == "window"][-1]
+    if not 0.0 < final["hmc_accept"] <= 1.0:
+        problems.append(f"10c: final-window HMC acceptance "
+                        f"{final['hmc_accept']}")
+    burst_ms = [e["wall_s"] / e["draws"] * 1e3 for e in log
+                if e["event"] == "burst"]
+    for e in log:
+        if e["event"] in ("window", "burst"):
+            say(f"phase 10c {e.get('name', 'burst')} {e['draws']} draws: "
+                f"{e['draws'] * C / e['wall_s']!r} draws/sec over the ranks,"
+                f" {e['wall_s'] / e['draws'] * 1e3!r} ms/transition, HMC "
+                f"acceptance {e['hmc_accept']}")
+    for r in reports:
+        say(f"phase 10c rank {r['rank']} on {r['device']}: {r['launches']} "
+            f"K1 launches in {transitions} transitions of {C // ranks} "
+            f"chains, {r['wall_s'] / transitions * 1e3!r} ms/transition "
+            f"over the whole run")
+    say(f"phase 10c bursts {burst_ms} ms/transition over {ranks} ranks of "
+        f"{C // ranks} chains against phase 6's {phase6_ms!r} on one "
+        f"process of {C}; final step size {final['adapted_step_size_min']!r}"
+        f" to {final['adapted_step_size_max']!r}; rank 0's store "
+        f"{shapes['samples/seir']}")
+    if problems:
+        raise AssertionError("phase 10: " + "; ".join(problems))
+    say(f"phase 10b-c on {card or 'the CPU'}: {wall:.1f} s for the ranks")
+    return sum(launches), transitions, burst_ms
+
+
+def phase_10d(torch, dev, M, T, C, card=""):
+    """Phase 10d: ``NAN_TRANSITIONS`` transitions of phase 3's chains three
+    ways from one generator seed: plain, through the MCMC driver's
+    ``debug_nans`` check (``nans.checked_step``) and wholly inside the
+    per-op mode (``nans.NanCheck``, what a transition with a NaN is run
+    again in); the draws must be equal; prints each one's ms/transition
+    (host clock ending in a synchronize)."""
+    from covid19uk_tpu_torch.inference.gibbs import HMCTunables, make_mcmc_step
+    from covid19uk_tpu_torch.utils import nans
+
+    t0 = time.perf_counter()
+    dev = torch.device(dev)
+    model, state, _ = build_chains(torch, dev, M, T, C)
+    step = make_mcmc_step(model, 16, event_config(T))
+    tune = HMCTunables(step_size=torch.tensor(STEP_SIZE, device=dev),
+                       inv_mass_diag=torch.ones(state.u.shape[1], device=dev))
+
+    def run(fn):
+        gen = torch.Generator(device=dev).manual_seed(1)
+
+        def transitions():
+            s = state
+            for _ in range(NAN_TRANSITIONS):
+                s, _ = fn(s, tune, gen)
+            return s
+
+        out, seconds = timed(torch, dev, transitions)
+        return out, seconds / NAN_TRANSITIONS * 1e3
+
+    plain, plain_ms = run(step)
+    checked, checked_ms = run(nans.checked_step(step))
+    with nans.NanCheck():
+        per_op, per_op_ms = run(step)
+    same = [bool(torch.equal(plain.u, o.u) and torch.equal(plain.events,
+                                                           o.events))
+            for o in (checked, per_op)]
+    say(f"phase 10d debug_nans on {card or 'the CPU'} ({C} chains, M={M}): "
+        f"{NAN_TRANSITIONS} transitions plain {plain_ms!r} ms/transition, "
+        f"with the MCMC driver's checked_step {checked_ms!r}, "
+        f"inside the per-op mode "
+        f"{per_op_ms!r}; draws equal to plain: {same} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if not all(same):
+        raise AssertionError(f"phase 10d: draws with debug_nans differ "
+                             f"{same}")
+
+
 def main(argv):
+    if argv[:1] == ["--rank-worker"]:
+        return rank_worker(argv[1:])
     rehearse = "--rehearse" in argv
-    faulthandler.dump_traceback_later(360, exit=True)
+    faulthandler.dump_traceback_later(600, exit=True)
     t0 = time.perf_counter()
     import torch
 
@@ -1418,14 +1817,17 @@ def main(argv):
             " skipped, no result line)")
         model, state, gen = build_chains(torch, "cpu", **TINY)
         phase_slice(torch, model, state, gen, timed=2)
-        _, _, store, _ = phase_driver(torch, 6, model, state,
-                                 uk_driver_config(TINY["T"]), UK_DRIVER,
-                                 "fused_sweep")
+        _, _, store, fused_ms = phase_driver(
+            torch, 6, model, state, uk_driver_config(TINY["T"]), UK_DRIVER,
+            "fused_sweep")
         rehearse_msoa(torch)
         covariates, init = synthetic_covariates(TINY["M"], TINY["T"])
         phase_posterior(torch, torch.device("cpu"), store, covariates, init)
         phase_9a(torch, "cpu", **TINY)
         phase_9c(torch, "cpu", **TINY)
+        phase_10(torch, torch.device("cpu"), **TINY, plan=UK_DRIVER,
+                 phase6_ms=fused_ms[0])
+        phase_10d(torch, "cpu", **TINY)
         return 3
 
     card = card_line()
@@ -1484,6 +1886,11 @@ def main(argv):
                             card)
     del msoa, mstate
     phase_9c(torch, "cuda", M, T, F64_CHAINS)
+    mesh_launches, mesh_transitions, _ = phase_10(
+        torch, torch.device("cuda"), M, T, C, UK_DRIVER, fused_ms[0], card)
+    k1_launches += mesh_launches
+    uk_transitions += RANKS * mesh_transitions
+    phase_10d(torch, "cuda", M, T, C, card)
 
     kernels = [
         dict(name="fused_sweep", route="cuda",

@@ -37,7 +37,10 @@ from covid19uk_tpu_torch.models.spec import (
 )
 from covid19uk_tpu_torch.models.ngm import next_generation_matrix_fn
 
+__version__ = "0.1.0"
+
 __all__ = [
+    "__version__",
     "STOICHIOMETRY",
     "TIME_DELTA",
     "NU",

@@ -6,9 +6,9 @@ dataclass up front, with the same fields, defaults and checks; unknown keys
 and out-of-range values fail fast with a pointed message.  The raw-dict
 interface is still accepted everywhere.  Why each default is what it is,
 with the measurements behind it, is in the JAX package's ``config.py``:
-those were taken with the JAX package, none with this port.  Of the fields, ``use_mesh``,
-``space_devices > 1`` and ``debug_nans`` are not ported: the driver raises
-``NotImplementedError`` for them.
+those were taken with the JAX package, none with this port.  Every field
+runs but one combination: ``space_devices > 1`` in a run over several
+ranks, for which the driver raises ``NotImplementedError``.
 """
 
 from dataclasses import dataclass, fields
@@ -65,7 +65,7 @@ class McmcConfig:
     # draw from the exact 2-D conditional.  It lowered gamma0's ESS at UK
     # equilibrium: the conditional is tight, so the refresh slaves gamma0
     # to the slow person-time mode.  Kept as an option for far-from-
-    # equilibrium starts; off by default (not ported: raises).
+    # equilibrium starts; off by default.
     gamma_gibbs: bool = False
     # Guided occult location proposal (gibbs.EventKernelConfig
     # occult_guided): sample the occult location from fixed observed-case
@@ -83,7 +83,7 @@ class McmcConfig:
     move_guided: str = "never"
     move_guide_floor: float = 0.1
     # Joint (gamma0, E->I events) ridge move: kept as an option, off by
-    # default (not ported: raises).
+    # default.
     compensate_gamma0: bool = False
     num_compensated_updates: int = 1  # ridge-move proposals per sweep
     num_bursts: int = 50
@@ -97,10 +97,13 @@ class McmcConfig:
     num_adaptation_iterations: int = 1000  # accepted for parity; unused
     num_chains: int = 1
     pooled_adaptation: bool = True  # pool step-size/mass across chains
-    use_mesh: bool = False  # shard chains over devices (not ported: raises)
+    # Shard the chains over the ranks of a multi-process run (each rank one
+    # device); with one rank it does nothing.
+    use_mesh: bool = False
     # With use_mesh: devices along the mesh's `space` axis — the location
     # axis of the event tensor / commuting matmul is sharded over it
     # (MSOA-scale model parallelism, SURVEY.md §2.8).  1 = chains only.
+    # Over several ranks, values > 1 are not ported: the driver raises.
     space_devices: int = 1
     # Convergence gating (SURVEY.md §5 "gated burst loop"): checked between
     # bursts on the scalar parameters; sampling stops early when every
@@ -134,7 +137,9 @@ class McmcConfig:
     checkpoint: Optional[str] = None
     log_file: Optional[str] = None
     profile_dir: Optional[str] = None
-    debug_nans: bool = False  # not ported: raises NotImplementedError
+    # Raise FloatingPointError at a NaN, naming the op that made it
+    # (utils/nans.py).
+    debug_nans: bool = False
     warmup: Optional[dict] = None
 
     def __post_init__(self):

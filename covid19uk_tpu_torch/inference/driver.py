@@ -11,6 +11,16 @@ and then come to the host in one copy (:func:`to_host`).  Burst b is
 written to the posterior store by a worker thread while burst b+1
 computes; the checkpoint lags one burst.  Runs on ``device="cuda"``
 unless the caller asks for the CPU, and raises without a card.
+
+With ``use_mesh`` over several ranks (``parallel/distributed.py``), each
+rank runs its ``C / world`` chains as its batch, on its own device, with a
+generator of its own (:func:`rank_seed`).  The ranks meet only at window
+and burst boundaries, where the driver waits for the host anyway: they
+pool the step size and mass over all chains, tune the move decays on the
+acceptance of all chains, run the convergence gate on the draws of all
+chains, and send their draws and traces to rank 0, which alone writes the
+posterior, the checkpoint and the log.  These collectives go through the
+host (``parallel/sharding.py:gather_chains``) on gloo and NCCL alike.
 """
 
 import os
@@ -40,13 +50,20 @@ from covid19uk_tpu_torch.models.spec import (
     ModelData,
     constrain_parameters,
 )
+from covid19uk_tpu_torch.parallel import distributed
 from covid19uk_tpu_torch.parallel.diagnostics import (
     effective_sample_size,
     gate_statistics,
     potential_scale_reduction,
 )
+from covid19uk_tpu_torch.parallel.mesh import chain_mesh
+from covid19uk_tpu_torch.parallel.sharding import (
+    chain_rows,
+    gather_chains,
+    shard_chain_state,
+)
 from covid19uk_tpu_torch.utils import checkpoint as ckpt
-from covid19uk_tpu_torch.utils import impute, ncio
+from covid19uk_tpu_torch.utils import impute, nans, ncio
 from covid19uk_tpu_torch.utils.logging import RunLog
 from covid19uk_tpu_torch.utils.store import Posterior
 
@@ -59,9 +76,10 @@ def _log(msg):
 
 
 def run_device(device):
-    """``device`` as a ``torch.device``; raises for a CUDA device when
-    there is no card (the driver never falls back to the CPU)."""
-    device = torch.device(device)
+    """``device`` as a ``torch.device``, an index-free ``cuda`` on this
+    rank's card (``distributed.local_device``); raises for a CUDA device
+    when there is no card (the driver never falls back to the CPU)."""
+    device = distributed.local_device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device: the driver runs on the card; pass "
@@ -70,23 +88,46 @@ def run_device(device):
     return device
 
 
-def check_ported(config):
-    """Raises ``NotImplementedError`` for the options of the ``Mcmc``
-    config that this port lacks: the multi-device ones and
-    ``debug_nans``.  Every other option, the off-default event kernels
-    (``compensate_gamma0``, ``pair_compensate_gamma0``, ``gamma_gibbs``)
-    included, runs."""
-    if config.use_mesh or config.space_devices > 1:
+def check_ported(config, world=1, num_chains=1):
+    """Checks the multi-device options of the ``Mcmc`` config against the
+    ``world`` ranks of the run, as the JAX driver checks them against its
+    device count.  With one rank ``use_mesh`` and ``space_devices`` do
+    nothing: the run takes the plain path.  With several, ``use_mesh`` is
+    required, ``space_devices`` must divide ``world`` and ``num_chains``
+    must be a multiple of ``world / space_devices`` (``ValueError``), and
+    ``space_devices > 1`` raises ``NotImplementedError``: the space axis is
+    not ported."""
+    if world == 1:
+        return
+    if not config.use_mesh:
+        raise ValueError(
+            f"{world} ranks need use_mesh: without it every rank would run "
+            f"all {num_chains} chains and write the same store")
+    space = config.space_devices
+    if world % space != 0:
+        raise ValueError(
+            f"space_devices={space} must divide device count {world}")
+    chain_dev = world // space
+    if num_chains % chain_dev != 0:
+        raise ValueError(
+            f"num_chains={num_chains} must be a multiple of the chain-axis "
+            f"device count {chain_dev} when use_mesh is set")
+    if space > 1:
         raise NotImplementedError(
-            "use_mesh / space_devices > 1 (and the distributed "
-            "initialization that goes with them) are not ported: the "
-            "multi-device slice comes later (ROADMAP.md §1 item 7)"
-        )
-    if config.debug_nans:
-        raise NotImplementedError(
-            "debug_nans is not ported: torch has no check of every "
-            "operation's output for NaN"
-        )
+            "space_devices > 1 over several ranks (the event tensor's "
+            "location axis sharded) is not ported: the space-axis slice "
+            "comes later (ROADMAP.md §1)")
+
+
+def rank_seed(seed, rank, world):
+    """The seed of rank ``rank``'s generator in a run over ``world``
+    ranks: ``seed`` itself for one rank, so a one-process run is
+    unchanged, else 64 bits of ``SeedSequence(seed).spawn(world)[rank]``,
+    which differ for every ``(seed, rank)``."""
+    if world == 1:
+        return seed
+    child = np.random.SeedSequence(seed).spawn(world)[rank]
+    return int(child.generate_state(1, np.uint64)[0])
 
 
 def draws_to_dict(u_constrained, events, num_steps, num_locations):
@@ -256,18 +297,21 @@ def run_mcmc(
         :class:`Posterior`'s ``write_samples``, ``write_results``,
         ``truncate``, ``__getitem__`` and ``create_dataset`` (written into
         as it is, with no preallocation).
-      num_chains: chains run together as the leading tensor axis.
-      seed: seed of the run's one ``torch.Generator`` on ``device``.
+      num_chains: chains run together as the leading tensor axis (over
+        all ranks; each rank holds its rows of them).
+      seed: seed of the run's ``torch.Generator`` on ``device`` (of
+        each rank's: :func:`rank_seed`).
       schedule: WarmupSchedule (reference defaults if None).
       checkpoint_path: optional path for burst-granular resume.
       device: the run's device; ``"cuda"`` raises without a card.
 
     Returns:
-      the posterior store (open).
+      the posterior store (open) on rank 0, None on the other ranks.
     """
     if isinstance(config, dict):
         config = McmcConfig.from_dict(config)
-    check_ported(config)
+    world = distributed.world()
+    check_ported(config, world, num_chains)
     device = run_device(device)
     if initial_chain_state.u.device.type != device.type:
         raise ValueError(
@@ -293,6 +337,12 @@ def run_mcmc(
             f"initial_chain_state has {initial_chain_state.u.shape[0]} "
             f"chains, num_chains is {C}"
         )
+    mesh = None
+    if world > 1:
+        mesh = chain_mesh()
+        state = shard_chain_state(state, mesh)
+        _log(f"Sharding {C} chains over {world} ranks")
+    lead = distributed.rank() == 0
     squeeze = C == 1
     resuming = checkpoint_path is not None and ckpt.exists(checkpoint_path)
 
@@ -342,8 +392,10 @@ def run_mcmc(
             "log_accept_ratio": np.zeros((1,) + chain_shape, np_dtype),
         },
     }
-    owns_store = isinstance(output_file, (str, os.PathLike))
-    if not owns_store:
+    owns_store = lead and isinstance(output_file, (str, os.PathLike))
+    if not lead:
+        posterior = None  # rank 0 writes every rank's chains
+    elif not owns_store:
         posterior = output_file
     elif resuming:
         # Never truncate an existing run: reopen and append past the
@@ -355,10 +407,10 @@ def run_mcmc(
         posterior = Posterior(
             output_file, sample_template, results_template, num_samples
         )
-    log = RunLog(config.log_file)
+    log = RunLog(config.log_file if lead else os.devnull)
     try:
         _sample(model, state, event_config, config, schedule, posterior,
-                log, checkpoint_path, resuming, seed, device)
+                log, checkpoint_path, resuming, seed, device, mesh)
     except BaseException:
         if owns_store:
             posterior.close()
@@ -369,11 +421,16 @@ def run_mcmc(
 
 
 def _sample(model, state, event_config, config, schedule, posterior, log,
-            checkpoint_path, resuming, seed, device):
+            checkpoint_path, resuming, seed, device, mesh):
     """run_mcmc's warmup, bursts and diagnostics on ``[C, ...]`` chains,
     writing to a prepared store; with ``resuming``, restarts from the
-    checkpoint instead of warming up."""
-    C, P = state.u.shape
+    checkpoint instead of warming up.  With a ``mesh``, ``state`` holds
+    this rank's rows of the chains, and rank 0 alone writes (``posterior``
+    is None elsewhere)."""
+    local, P = state.u.shape  # this rank's chains
+    world = 1 if mesh is None else distributed.world()
+    rank = distributed.rank()
+    C = local * world
     dtype = state.u.dtype
     T, M = model.num_steps, model.data.num_locations
     squeeze = C == 1
@@ -382,7 +439,13 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
     warmup_stored = schedule.total if config.store_warmup else 0
     offset = 0
     gen = torch.Generator(device=device)
-    gen.manual_seed(seed)
+    gen.manual_seed(rank_seed(seed, rank, world))
+
+    def gather(tree, axis=0, dst=None):
+        """``tree``'s chain axis over all ranks (on ``dst`` only)."""
+        if mesh is None:
+            return tree
+        return gather_chains(tree, mesh, axis, dst)
 
     # Phase-split kernel stacks: the episode-translation pair moves exist
     # to equilibrate the slow infectious-person-time mode, which is a
@@ -396,6 +459,9 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
         event_config._replace(
             num_pair_updates=config.num_pair_updates_sampling),
     )
+    if config.debug_nans:
+        step, step_sample = nans.checked_step(step), nans.checked_step(
+            step_sample)
 
     def to_samples(draws):
         u_con = constrain_parameters(torch.from_numpy(draws.u)).numpy()
@@ -412,9 +478,9 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
 
     # ---- adaptation state ------------------------------------------------
     da = dual_averaging.init(
-        torch.full((C,), INITIAL_STEP_SIZE, dtype=dtype, device=device))
-    wf = welford.init((C, P), dtype, device)
-    inv_mass = torch.ones((C, P), dtype=dtype, device=device)
+        torch.full((local,), INITIAL_STEP_SIZE, dtype=dtype, device=device))
+    wf = welford.init((local, P), dtype, device)
+    inv_mass = torch.ones((local, P), dtype=dtype, device=device)
 
     # ---- Robbins–Monro acceptance autotuning of the move decays ----------
     # Each move kernel's displacement decay AND event-count (x) decay are
@@ -463,7 +529,14 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
     def pool(step_size, wf):
         if not config.pooled_adaptation or C == 1:
             return step_size, wf
-        return pool_adaptation(step_size, wf)
+        if mesh is None:
+            return pool_adaptation(step_size, wf)
+        # every rank pools the statistics of all C chains, as one process
+        # would, and keeps its rows
+        step_size, wf = pool_adaptation(*gather((step_size, wf)))
+        rows = chain_rows(C, mesh)
+        return step_size[rows], welford.RunningVariance(
+            *[x[rows] for x in wf])
 
     def window(name, n, adapt_mass, state, da, wf, inv_mass):
         """One warmup window: the runner, one copy to the host and the
@@ -476,20 +549,27 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
         state, da, wf, inv_mass, draws, traces = run(
             state, da, wf, inv_mass, gen, decays)
         # only the stored draws come to the host; Welford reads the
-        # device's u
+        # device's u.  Every rank holds all chains' traces (the decays
+        # tune on them), rank 0 all chains' draws.
         host_draws, host_traces = to_host(
             (draws if config.store_warmup else None, traces))
-        wall = time.perf_counter() - t0
+        host_traces = gather(host_traces, axis=1)
         if config.store_warmup:
-            write_at(host_draws, host_traces, offset)
+            host_draws = gather(host_draws, axis=1, dst=0)
+            if rank == 0:
+                write_at(host_draws, host_traces, offset)
             offset += n
+        wall = time.perf_counter() - t0
         return state, da, wf, inv_mass, draws, traces, host_traces, wall
 
     def log_window(name, n, traces, wall, step_size, inv_mass):
         """The window's log event; ``step_size`` and ``inv_mass`` are what
         the next window (or sampling) starts from."""
-        ranges = torch.stack([step_size.min(), step_size.max(),
-                              inv_mass.min(), inv_mass.max()]).cpu()
+        ranges = gather(torch.stack([step_size.min(), step_size.max(),
+                                     inv_mass.min(), inv_mass.max()])
+                        .cpu().numpy()[None])
+        ranges = [ranges[:, 0].min(), ranges[:, 1].max(),
+                  ranges[:, 2].min(), ranges[:, 3].max()]
         extra = {}
         if autotune:
             extra = dict(
@@ -520,6 +600,17 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
         host_state, key, step_size, inv_mass, offset, extra = ckpt.load(
             checkpoint_path, state
         )
+        # a run over several ranks saves every rank's generator state
+        saved = key.shape[0] if key.ndim == 2 else 1
+        if saved != world:
+            raise ValueError(
+                f"the checkpoint is of a run over {saved} ranks, this run "
+                f"has {world}: resume with as many ranks")
+        if mesh is not None:
+            rows = chain_rows(C, mesh)
+            host_state = ChainState(*[x[rows] for x in host_state])
+            key, step_size, inv_mass = key[rank], step_size[rows], inv_mass[
+                rows]
         state = ChainState(*[torch.as_tensor(x, device=device)
                              for x in host_state])
         gen.set_state(torch.as_tensor(key, dtype=torch.uint8))
@@ -572,7 +663,8 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
     _log("Sampling...")
     burst = make_fixed_runner(step_sample, config.num_burst_samples,
                               keep_events_every=thin)
-    host_step_size, host_inv_mass = to_host((step_size, inv_mass))
+    # rank 0's checkpoint holds every chain's tunables
+    host_tunables = gather(to_host((step_size, inv_mass)), dst=0)
 
     # Host-side writes run on a single worker thread so burst b's write
     # overlaps burst b+1's device compute; checkpoints lag one burst
@@ -593,7 +685,8 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
     # Between-burst convergence gate: scalar-parameter draws accumulate
     # host-side (they come back for the store anyway); sampling stops once
     # every enabled criterion holds.  On resume the gate sees only
-    # post-resume draws.
+    # post-resume draws.  Every rank gates on all chains' draws, so all
+    # stop at the same burst.
     gating = config.rhat_stop is not None or config.ess_stop is not None
     gate_hist = []
     stopped_early = False
@@ -602,7 +695,7 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
     try:
         for b in range(start_burst, config.num_bursts):
             profiler = None
-            if config.profile_dir and b == max(start_burst, 1):
+            if config.profile_dir and rank == 0 and b == max(start_burst, 1):
                 activities = [torch.profiler.ProfilerActivity.CPU]
                 if device.type == "cuda":
                     activities.append(torch.profiler.ProfilerActivity.CUDA)
@@ -624,35 +717,44 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
                 os.makedirs(config.profile_dir, exist_ok=True)
                 profiler.export_chrome_trace(
                     os.path.join(config.profile_dir, f"burst_{b}.json"))
-            wall = time.perf_counter() - t0
-            log.event(
-                "burst", index=b, draws=config.num_burst_samples,
-                hmc_accept=round(float(traces.hmc.is_accepted.mean()), 4),
-                draws_per_sec=round(
-                    config.num_burst_samples * C / max(wall, 1e-9), 2
-                ),
-                wall_s=wall,
-                copy_ms=copy_ms,
-            )
             # keep draws thin-1, 2*thin-1, ... (draws.events holds only
             # those already)
             kept = ChainState(u=draws.u[thin - 1 :: thin],
                               events=draws.events)
             traces_w = _tree_map(lambda x: x[thin - 1 :: thin], traces)
-            pending_write = executor.submit(write_at, kept, traces_w, offset)
+            last = ChainState(u=draws.u[-1], events=draws.events[-1])
+            accepted = traces.hmc.is_accepted
+            if mesh is not None:  # every chain's, on rank 0
+                sent = gather((kept, traces_w, accepted), axis=1, dst=0)
+                ends = gather((last, key[None]), dst=0)
+                if rank == 0:
+                    (kept, traces_w, accepted), (last, key) = sent, ends
+            wall = time.perf_counter() - t0
+            if rank == 0:
+                log.event(
+                    "burst", index=b, draws=config.num_burst_samples,
+                    hmc_accept=round(float(accepted.mean()), 4),
+                    draws_per_sec=round(
+                        config.num_burst_samples * C / max(wall, 1e-9), 2
+                    ),
+                    wall_s=wall,
+                    copy_ms=copy_ms,
+                )
+                pending_write = executor.submit(write_at, kept, traces_w,
+                                                offset)
+                pending_ckpt = dict(
+                    state=last,
+                    key=key,
+                    step_size=host_tunables[0],
+                    inv_mass_diag=host_tunables[1],
+                    offset=offset + stored_per_burst,
+                    extra={"burst": b + 1, "log_decays": list(log_decays)},
+                )
             offset += stored_per_burst
-            pending_ckpt = dict(
-                state=ChainState(u=draws.u[-1], events=draws.events[-1]),
-                key=key,
-                step_size=host_step_size,
-                inv_mass_diag=host_inv_mass,
-                offset=offset,
-                extra={"burst": b + 1, "log_decays": list(log_decays)},
-            )
             _log(f"burst {b + 1}/{config.num_bursts}")
             if gating:
-                u_scal = np.array(np.swapaxes(draws.u[..., :6], 0, 1))
-                # [C, n, 6]
+                u_scal = gather(np.array(np.swapaxes(draws.u[..., :6], 0,
+                                                     1)))  # [C, n, 6]
                 u_scal[..., :2] = np.logaddexp(0.0, u_scal[..., :2])
                 gate_hist.append(u_scal)
                 max_rhat, min_ess = gate_statistics(
@@ -677,6 +779,8 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
         flush_pending()
     finally:
         executor.shutdown()  # waits for a write in flight
+    if rank != 0:
+        return
     if stopped_early:
         posterior.truncate(offset)
     sampling_wall = time.perf_counter() - sampling_t0
@@ -780,22 +884,13 @@ def event_kernel_config(config, num_steps):
     )
 
 
-def mcmc(data_file, output_file, config, device="cuda"):
-    """Constructs and runs the MCMC (reference inference.py:473-608).
-
-    Args:
-      data_file: HDF5 with groups ``constant_data`` and ``observations``.
-      output_file: posterior HDF5 output path.
-      config: the ``Mcmc`` config section (example_config.yaml:25-34), plus
-        optional extras: num_chains, dtype, seed, checkpoint.
-      device: the run's device; ``"cuda"`` raises without a card.
-    """
-    if isinstance(config, dict):
-        config = McmcConfig.from_dict(config)
-    check_ported(config)
-    device = run_device(device)
+def prepare(data_file, config, device):
+    """The model, the single-chain initial state and the event kernels'
+    configuration that :func:`mcmc` runs (reference inference.py:490-576),
+    from the data file and the ``Mcmc`` config on ``device``; every rank
+    builds the same.  Returns ``(model, chain_state, event_config,
+    initial_state, dates)``."""
     dtype = torch.float64 if config.dtype == "float64" else torch.float32
-
     constant_data = ncio.load_group(data_file, "constant_data")
     observations = ncio.load_group(data_file, "observations")
     cases = np.asarray(observations["cases"], np.float64)  # [M, T0]
@@ -824,15 +919,40 @@ def mcmc(data_file, output_file, config, device="cuda"):
         num_steps=T,
     )
 
-    event_config = event_kernel_config(config, T)
-
     # reference inference.py:563-576
     u0 = torch.zeros((6 + (T - 1) + M,), dtype=dtype, device=device)
     chain_state = ChainState(
         u=u0, events=torch.as_tensor(events, dtype=dtype, device=device))
+    return (model, chain_state, event_kernel_config(config, T),
+            initial_state, dates)
 
-    lp0 = model.joint_log_prob_unconstrained(chain_state.u, chain_state.events)
-    print("Initial logpi:", float(lp0), flush=True)
+
+def mcmc(data_file, output_file, config, device="cuda"):
+    """Constructs and runs the MCMC (reference inference.py:473-608).
+
+    Joins a group of ranks first when the launcher's environment names
+    one (``parallel/distributed.py:initialize``); rank 0 then writes the
+    posterior of every rank's chains.
+
+    Args:
+      data_file: HDF5 with groups ``constant_data`` and ``observations``.
+      output_file: posterior HDF5 output path.
+      config: the ``Mcmc`` config section (example_config.yaml:25-34), plus
+        optional extras: num_chains, dtype, seed, checkpoint.
+      device: the run's device; ``"cuda"`` raises without a card.
+    """
+    if isinstance(config, dict):
+        config = McmcConfig.from_dict(config)
+    distributed.initialize()
+    check_ported(config, distributed.world(), config.num_chains)
+    device = run_device(device)
+    model, chain_state, event_config, initial_state, dates = prepare(
+        data_file, config, device)
+
+    if distributed.rank() == 0:
+        lp0 = model.joint_log_prob_unconstrained(chain_state.u,
+                                                 chain_state.events)
+        print("Initial logpi:", float(lp0), flush=True)
 
     posterior = run_mcmc(
         model,
@@ -845,6 +965,8 @@ def mcmc(data_file, output_file, config, device="cuda"):
         checkpoint_path=config.checkpoint,
         device=device,
     )
+    if posterior is None:
+        return  # this rank's chains are in rank 0's store
     posterior.create_dataset("initial_state", initial_state)
     if dates is not None:
         posterior.create_dataset(

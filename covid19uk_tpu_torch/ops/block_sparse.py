@@ -16,13 +16,16 @@ through the permutation with no padded copy; for tensors on the CPU it runs
 :func:`_plain`, the plain version (gather, pad, :func:`bsr_matmul_reference`,
 crop, gather).  The matrix is symmetric, so the gradient with respect to
 ``x`` is the same product applied to the cotangent; the operator is a
-constant.
+constant.  Inside a :class:`~covid19uk_tpu_torch.utils.nans.NanCheck` the
+product is checked for NaN (the mode does not see the kernel's output).
 """
 
 import functools
 
 import numpy as np
 import torch
+
+from covid19uk_tpu_torch.utils import nans
 
 BLOCK = 128  # rows and columns of one block
 
@@ -141,6 +144,7 @@ def _apply(op, x):
                     op.slots, op.order)
     else:
         raise ValueError(f"no block-sparse product for device {x.device}")
+    nans.check("bsr_matmul", (y,))
     return y.reshape(lead + (n, t))
 
 

@@ -31,6 +31,7 @@ import torch
 
 from covid19uk_tpu_torch.models import seir
 from covid19uk_tpu_torch.models.spec import RATE_EPS
+from covid19uk_tpu_torch.utils import nans
 
 NU = float(seir.NU)
 _HALF_LOG_2PI = 0.5 * math.log(2.0 * math.pi)
@@ -677,18 +678,22 @@ def fused_sweep(tbl, ttbl, events, state, commute, logp, exp_eta, psi_w,
 
     Tensors on the CPU run the plain version; tensors on a CUDA device run
     the CUDA kernel (counted in ``fused_sweep.launches``); any other
-    device raises.
+    device raises.  Inside a :class:`~covid19uk_tpu_torch.utils.nans.NanCheck`
+    the outputs are checked for NaN (the mode does not see the kernel's).
     """
     _check(tbl, ttbl, events, state, commute, logp, exp_eta, psi_w,
            rate_ir_t, N, Cstar, decays, cfg)
     if events.device.type == "cpu":
-        return fused_sweep_reference(tbl, ttbl, events, state, commute, logp,
+        outs = fused_sweep_reference(tbl, ttbl, events, state, commute, logp,
                                      exp_eta, psi_w, rate_ir_t, N, Cstar,
                                      decays, cfg)
-    if events.device.type != "cuda":
+    elif events.device.type == "cuda":
+        outs = _launch(tbl, ttbl, events, state, commute, logp, exp_eta,
+                       psi_w, rate_ir_t, N, Cstar, decays, cfg)
+    else:
         raise ValueError(f"no fused_sweep for device {events.device}")
-    return _launch(tbl, ttbl, events, state, commute, logp, exp_eta, psi_w,
-                   rate_ir_t, N, Cstar, decays, cfg)
+    nans.check("fused_sweep", outs)
+    return outs
 
 
 fused_sweep.launches = 0

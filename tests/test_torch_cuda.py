@@ -9,6 +9,9 @@ with a card and no JAX:
 Without a card the test skips (the CUDA kernel has no CPU mode).
 """
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -251,3 +254,55 @@ def test_cuda_gamma_refresh_and_gp_conditional_match_the_cpu():
     probe = posts[1].mean + 0.1
     torch.testing.assert_close(posts[0].log_prob(probe.cuda()).cpu(),
                                posts[1].log_prob(probe), rtol=1e-9, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_step_over_two_ranks_on_one_card(tmp_path):
+    """Two gloo ranks on the one card run 4 chains each through K1 on
+    the same StepNoise rows as the one-process step on 8: events
+    identical, u within rtol 1e-5 (cuBLAS may pick another algorithm for
+    the smaller batch)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    # by its path: the card's machine may have another package named tests
+    spec = importlib.util.spec_from_file_location(
+        "torch_ranks", os.path.join(os.path.dirname(__file__),
+                                    "torch_ranks.py"))
+    torch_ranks = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(torch_ranks)
+    torch_ranks.spawn("parallel", tmp_path, device="cuda")
+    _, state, tune, noise, step = torch_ranks.step_case("cuda", torch.float32)
+    before = fs.fused_sweep.launches
+    want = [x.cpu() for x in torch_ranks.leaves(step(state, tune, None,
+                                                     noise))]
+    assert fs.fused_sweep.launches == before + 1
+    for r in range(2):
+        got = np.load(tmp_path / f"parallel_{r}.npz")
+        np.testing.assert_array_equal(got["step_1"], want[1].numpy())
+        np.testing.assert_allclose(got["step_0"], want[0].numpy(),
+                                   rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.gpu
+def test_cuda_debug_nans_names_the_op_and_the_kernel():
+    """On the card the mode names an aten op's NaN, and K1's wrapper its
+    own (a NaN logp in, a NaN logp out of the kernel)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from covid19uk_tpu_torch.utils import nans
+
+    zero = torch.zeros(4, device="cuda")
+    with nans.NanCheck(), pytest.raises(FloatingPointError,
+                                        match=r"aten\.mul"):
+        torch.log(zero) * 0.0
+    C, M, T = 4, 40, 30
+    cfg = fs.SweepConfig(mmax=2, nmax=10, dmax=8, occult_nmax=5,
+                         t_range=(T - 10, T), num_updates=2,
+                         occult_guided=False)
+    args = list(_sweep_args(C, M, T, cfg,
+                            torch.Generator(device="cuda").manual_seed(0)))
+    args[5] = args[5].clone()
+    args[5][0] = float("nan")
+    with nans.NanCheck(), pytest.raises(FloatingPointError,
+                                        match="fused_sweep kernel"):
+        fs.fused_sweep(*args, cfg)

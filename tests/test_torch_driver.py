@@ -141,11 +141,9 @@ def test_config_matches_jax():
 
 
 def test_unported_options_and_missing_card_raise(tmp_path, monkeypatch):
-    for opt in (dict(use_mesh=True), dict(space_devices=2),
-                dict(debug_nans=True)):
-        with pytest.raises(NotImplementedError):
-            tdriver.mcmc(NI_DATA, str(tmp_path / "p.h5"), _cfg(**opt),
-                         device="cpu")
+    """Without a card the driver raises rather than move to the CPU.
+    (Every option of the config now runs on one process; the space axis
+    over several ranks raises: tests/test_torch_mesh_driver.py.)"""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tdriver.mcmc(NI_DATA, str(tmp_path / "p.h5"), _cfg())
@@ -337,6 +335,12 @@ def test_driver_and_chip_smoke_import_without_h5py_and_yaml():
         "import covid19uk_tpu_torch.models.ngm\n"
         "import covid19uk_tpu_torch.utils.diagnostics\n"
         "import covid19uk_tpu_torch.utils.settings\n"
+        "import covid19uk_tpu_torch.utils.nans\n"
+        "import covid19uk_tpu_torch.version\n"
+        "import covid19uk_tpu_torch.parallel.distributed\n"
+        "import covid19uk_tpu_torch.parallel.dryrun\n"
+        "import covid19uk_tpu_torch.parallel.mesh\n"
+        "import covid19uk_tpu_torch.parallel.sharding\n"
         "for verb in ('mcmc', 'thin_posterior', 'predict',\n"
         "             'reproduction_number', 'within_between'):\n"
         "    assert callable(getattr(pkg, verb))\n"

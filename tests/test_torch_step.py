@@ -227,6 +227,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import covid19uk_tpu_torch.inference.driver\n"
         "import covid19uk_tpu_torch.inference.inference\n"
         "import covid19uk_tpu_torch.parallel.diagnostics\n"
+        "import covid19uk_tpu_torch.parallel.distributed\n"
+        "import covid19uk_tpu_torch.parallel.dryrun\n"
+        "import covid19uk_tpu_torch.parallel.mesh\n"
+        "import covid19uk_tpu_torch.parallel.sharding\n"
+        "import covid19uk_tpu_torch.utils.nans\n"
+        "import covid19uk_tpu_torch.version\n"
         "import covid19uk_tpu_torch.utils.checkpoint\n"
         "import covid19uk_tpu_torch.utils.impute\n"
         "import covid19uk_tpu_torch.utils.logging\n"
@@ -260,8 +266,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_chip_smoke_rehearsal_on_cpu():
     """The chip smoke script's CPU rehearsal runs the slices, the driver
-    phases and the posterior verbs at a tiny size and, having no card,
-    exits non-zero without a result line."""
+    phases, the posterior verbs and the two-rank phase at a tiny size and,
+    having no card, exits non-zero without a result line."""
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse"],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
@@ -274,4 +280,9 @@ def test_chip_smoke_rehearsal_on_cpu():
     for part in ("9a", "9b", "9c"):
         assert f"phase {part} " in out.stdout and f"phase {part} done" in \
             out.stdout
+    # phase 10 on two CPU ranks
+    for line in ("phase 10a dry run over 2 ranks", "phase 10b sharded",
+                 "phase 10c rank 0 on cpu", "phase 10c rank 1 on cpu",
+                 "phase 10b-c on the CPU", "phase 10d debug_nans"):
+        assert line in out.stdout, line
     assert '"ok"' not in out.stdout

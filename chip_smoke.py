@@ -2,7 +2,7 @@
 """Runs the PyTorch/CUDA port (covid19uk_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # on a machine with a card
-    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-10; exits 3
+    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-11; exits 3
 
 Phases, one short line each:
   0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
@@ -85,8 +85,9 @@ Phases, one short line each:
      (a) the dry run, one sharded transition a rank, checksums equal
      across ranks; (b) the sharded UK transition of the 64 chains, 32 a
      rank, fused sweep, on a StepNoise replay, against the one-process
-     transition on the same noise: events identical, u within rtol 1e-5
-     (the first differing chain printed); (c) run_mcmc with use_mesh on
+     transition on the same noise in batches of 32 chains: events
+     identical, u within rtol 1e-5 (the first differing chain printed);
+     (c) run_mcmc with use_mesh on
      phase 6's plan and chains: one K1 launch per transition on each rank,
      the ranks start every window from the same pooled step size, every
      window and burst from the same decays and the slow window from the
@@ -95,10 +96,32 @@ Phases, one short line each:
      plain, through the MCMC driver's debug_nans check and wholly inside the
      per-op NaN mode: equal draws, each one's ms/transition.  A failed
      rank fails the run; no rank runs on the CPU.
-Then the kernels' JSON line (launches: K1 phase 6's and phase 10c's on
-both ranks, K2 phases 7 and 9b; phase 8 launches neither kernel, phase 9a
-must not launch K1) and, last, the result line.  Any failure exits
-non-zero, as does a run without a CUDA device.
+ 11. the space axis over two ranks on the one card (gloo, both on
+     cuda:0, one space group: the locations split in two bands, the chains
+     not split): (a) the UK transition of the 64 chains, M=380, fused
+     sweep, on a StepNoise replay against the one-process transition:
+     events identical, u within rtol 1e-5 with an atol of float32's own
+     error in the one-process transition (against the same transition in
+     float64; the largest difference printed), one K1 launch a rank (K1
+     runs on the gathered events on both ranks), the band's commute
+     against the whole product's rows;
+     (b) run_mcmc with use_mesh and space_devices=2 on phase 6's plan and
+     chains: one K1 launch per transition on each rank, rank 0's store
+     (4, 64, 380, 120, 3), final-window HMC acceptance in (0, 1], each
+     rank's ms/transition beside phase 6's; (c) the MSOA transition at
+     M=7168 (56 block rows), one chain, 2 untimed + 3 timed: one K2 launch
+     a transition on each rank over its 28 block rows, the band launch
+     within 1e-5 of its plain version (of |A|@|x|), the bands summed over
+     the ranks bitwise the whole launch, each rank's ms/transition beside
+     one process's, K2 timed alone on a band and on all block rows in one
+     process; and
+     2 transitions at M=7000, whose 55 block rows do not split: the whole
+     operator on both ranks (whole launches, no band product).
+Then the kernels' JSON line (launches: K1 phase 6's, phase 10c's and
+phase 11a-b's on every rank, K2 phases 7, 9b and 11c's on both ranks;
+phase 8 launches neither kernel, phase 9a must not launch K1) and, last,
+the result line.  Any failure exits non-zero, as does a run without a
+CUDA device.
 """
 
 import faulthandler
@@ -501,14 +524,15 @@ def msoa_config(T):
     )
 
 
-def build_msoa(torch, device, M, T, seed=0):
+def build_msoa(torch, device, M, T, seed=0, sparse="auto"):
     """The MSOA model (block-sparse commute, banded CAR prior) and one
-    chain with forward-simulated events."""
+    chain with forward-simulated events (``sparse=True`` forces the
+    operators below M = 1024, for a rehearsal)."""
     from covid19uk_tpu_torch.inference.gibbs import ChainState
     from covid19uk_tpu_torch.utils.synthetic import (
         build_synthetic_model, initial_chain_state)
 
-    model = build_synthetic_model(M, T, torch.float32, sparse="auto",
+    model = build_synthetic_model(M, T, torch.float32, sparse=sparse,
                                   radius_frac=MSOA_RADIUS, keep_C=False,
                                   device=device)
     d = model.data
@@ -1556,17 +1580,19 @@ def rank_worker(argv):
     return 0
 
 
-def spawn_ranks(tmp, device, ranks):
-    """Runs ``ranks`` phase-10 ranks to their end and relays their
-    ``phase 10`` lines; raises with their output if one fails."""
+def spawn_ranks(tmp, device, ranks, worker="--rank-worker",
+                prefix="phase 10"):
+    """Runs ``ranks`` ranks of ``worker`` to their end and relays their
+    lines that start with ``prefix``; raises with their output if one
+    fails."""
     from covid19uk_tpu_torch.parallel.distributed import run_ranks
 
     outs = run_ranks(lambda r: [
-        sys.executable, os.path.abspath(__file__), "--rank-worker", tmp,
-        str(r), device], ranks)
+        sys.executable, os.path.abspath(__file__), worker, tmp,
+        str(r), device], ranks, timeout=600)
     for out in outs:
         for line in out.strip().splitlines():
-            if line.startswith("phase 10"):
+            if line.startswith(prefix):
                 say(line)
 
 
@@ -1575,9 +1601,10 @@ def phase_10(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS):
     all on ``cuda:0`` over gloo, on as many cards as ranks one each over
     NCCL).  10a: the dry run (``parallel/distributed.py:
     spawn_dryrun``): one sharded transition a rank, checksums equal; 10b:
-    the sharded transition of C chains (C/2 a rank, fused sweep) on a
-    StepNoise replay against the one-process transition on the same noise:
-    events identical, u within rtol 1e-5, one K1 launch a rank; 10c:
+    the sharded transition of C chains (C/ranks a rank, fused sweep) on a
+    StepNoise replay against the one-process transition on the same noise
+    in batches of C/ranks chains: events identical, u within rtol 1e-5,
+    one K1 launch a rank; 10c:
     ``run_mcmc`` with ``use_mesh`` on ``plan``: one K1 launch per
     transition on each rank, the ranks start every window from the same
     pooled step size and every window and burst from the same decays, the
@@ -1617,11 +1644,12 @@ def phase_10(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS):
             step_size=torch.full((C, 1), STEP_SIZE, device=dev),
             inv_mass_diag=torch.ones_like(state.u))
         step = make_mcmc_step(model, 16, event_config(T))
-        want, _ = step(state, tune, None, noise)
-        want_u, want_ev = want.u.cpu().numpy(), want.events.cpu().numpy()
-        # the same transition in batches of C/4 on one device: what a
-        # smaller batch alone changes in float32
-        batch = max(1, C // 4)
+        whole, _ = step(state, tune, None, noise)
+        whole_u = whole.u.cpu().numpy()
+        # the like-for-like one-process transition: in batches of a rank's
+        # C / ranks chains on one device (float32 rounds a smaller batch's
+        # sums otherwise)
+        batch = C // ranks
 
         def rows(x, b):
             return type(x)(*[None if v is None else v[b:b + batch]
@@ -1629,9 +1657,9 @@ def phase_10(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS):
 
         split = [step(rows(state, b), rows(tune, b), None, rows(noise, b))[0]
                  for b in range(0, C, batch)]
-        split_u = torch.cat([x.u for x in split]).cpu().numpy()
-        split_ev = torch.cat([x.events for x in split]).cpu().numpy()
-        del model, state, want, split
+        want_u = torch.cat([x.u for x in split]).cpu().numpy()
+        want_ev = torch.cat([x.events for x in split]).cpu().numpy()
+        del model, state, whole, split
         with open(os.path.join(tmp, "spec.json"), "w") as f:
             json.dump(dict(M=M, T=T, C=C, plan=plan, ranks=ranks), f)
         t1 = time.perf_counter()
@@ -1669,20 +1697,17 @@ def phase_10(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS):
     if on_card and any(r["step_launches"] != 1 for r in reports):
         problems.append(f"10b: K1 launches per rank "
                         f"{[r['step_launches'] for r in reports]}, not 1")
-    say(f"phase 10b sharded transition of {C} chains ({C // ranks} a rank, "
-        f"M={M}, T={T}) against the one-process transition on the same "
-        f"StepNoise: events of {C - len(diff)} of {C} chains identical, u "
-        f"max relative difference {rel!r} (bitwise equal: "
-        f"{bool(np.array_equal(got_u, want_u))}), K1 launches per rank "
-        f"{[r['step_launches'] for r in reports]}")
-    s_diff, s_rel, s_first, s_bad = compare(split_u, split_ev)
-    say(f"phase 10b the one-process transition in {C // batch} batches of "
-        f"{batch} on "
-        f"one device against one batch of {C}: events of {C - len(s_diff)}"
-        f" of {C} chains identical, u max relative difference {s_rel!r}, "
-        f"{s_bad} chains off by more than rtol 1e-5 (first {s_first}); the "
-        f"ranks' u bitwise equal to it: "
-        f"{bool(np.array_equal(got_u, split_u))}")
+    say(f"phase 10b sharded transition of {C} chains ({batch} a rank, "
+        f"M={M}, T={T}) against the one-process transition in batches of "
+        f"{batch} on the same StepNoise: events of {C - len(diff)} of {C} "
+        f"chains identical, u max relative difference {rel!r} (bitwise "
+        f"equal: {bool(np.array_equal(got_u, want_u))}), K1 launches per "
+        f"rank {[r['step_launches'] for r in reports]}")
+    w_rel = float(np.max(np.abs(got_u - whole_u)
+                         / np.maximum(np.abs(whole_u), 1e-30)))
+    say(f"phase 10b against one batch of all {C} chains instead: u max "
+        f"relative difference {w_rel!r} (bitwise equal: "
+        f"{bool(np.array_equal(got_u, whole_u))})")
 
     # 10c
     warmup, bursts, draws, thin = plan
@@ -1793,11 +1818,461 @@ def phase_10d(torch, dev, M, T, C, card=""):
                              f"{same}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the space axis, the location axis sharded over ranks.
+# ---------------------------------------------------------------------------
+
+SPACE = 2  # phase 11's space axis (mesh_scale.py --space asks for more)
+MSOA_SPACE_M = 7168  # 56 block rows: bands over 2 and 4 ranks
+SPACE_TIMED = 3  # 11c's timed MSOA transitions
+SPACE_FALLBACK = 2  # 11c's transitions at M = 7000 (55 block rows)
+# 11b's plan in a rehearsal: every window and a burst, 12 transitions
+REHEARSE_DRIVER = (dict(first_window=4, slow_window=2, num_slow_windows=1,
+                        last_window=2), 1, 4, 2)
+
+
+def space_worker(argv):
+    """One rank of phase 11: ``--space-worker <dir> <rank> <device>``
+    (sizes in ``<dir>/spec.json``).  11a: the space-sharded transition on
+    the parent's StepNoise, K1's launches, the band's commute against the
+    whole product; 11b: ``run_mcmc`` with ``use_mesh`` and
+    ``space_devices`` on phase 6's plan; 11c: the MSOA transition with K2
+    on the rank's band of block rows (launches, band rows, the band
+    launch against its plain version, the summed bands against the whole
+    launch), and the replicated operator at M = 7000.  Writes
+    ``<dir>/space<r>.pkl``."""
+    import pickle
+
+    tmp, rank, device = argv[0], int(argv[1]), argv[2]
+    faulthandler.dump_traceback_later(600, exit=True)
+    import torch
+
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    if device == "cpu":
+        torch.set_num_threads(1)  # tiny shapes; the ranks share the host
+    else:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from covid19uk_tpu_torch.inference import driver
+    from covid19uk_tpu_torch.inference.gibbs import (
+        ChainState, HMCTunables, StepNoise, make_mcmc_step)
+    from covid19uk_tpu_torch.models import seir
+    from covid19uk_tpu_torch.ops import block_sparse as bs
+    from covid19uk_tpu_torch.parallel import distributed
+    from covid19uk_tpu_torch.parallel.mesh import axis, chain_space_mesh
+    from covid19uk_tpu_torch.parallel.sharding import (
+        SpaceBand, chain_rows, gather_chains, gather_space,
+        make_sharded_step, shard_chain_state, shard_tunables)
+
+    ranks, space = spec["ranks"], spec["space"]
+    distributed.initialize(f"file://{tmp}/store", ranks, rank)
+    try:
+        dev = distributed.local_device(device)
+        if dev.type != device:
+            raise AssertionError(f"rank {rank} on {dev}, not {device}")
+        on_card = dev.type == "cuda"
+        sync = ((lambda: torch.cuda.synchronize(dev)) if on_card
+                else (lambda: None))
+        Mm, Tt, Cc = spec["M"], spec["T"], spec["C"]
+        report = {"rank": rank, "device": str(dev)}
+        mesh = chain_space_mesh(ranks, space)
+        slices, chain_rank = axis(mesh, "chain")
+        lead = axis(mesh, "space")[1] == 0
+        model, state, _ = build_chains(torch, dev, Mm, Tt, Cc)
+
+        # 11a: the sharded step on the parent's inputs and noise
+        with np.load(os.path.join(tmp, "step.npz")) as z:
+            inp = {k: torch.as_tensor(z[k], device=dev) for k in z.files}
+        full = ChainState(u=inp["u"], events=inp["events"])
+        noise = StepNoise(inp["z"], inp["u_accept"], inp["tbl"], inp["ttbl"])
+        tune = HMCTunables(
+            step_size=torch.full((Cc, 1), STEP_SIZE, device=dev),
+            inv_mass_diag=torch.ones_like(full.u))
+        band = SpaceBand(mesh, Mm)
+        mine = shard_chain_state(full, mesh, shard_space=True)
+        whole = inp["commute"][chain_rows(Cc, mesh)][:, band.rows]
+        cm = model.commute_pressure(seir.compute_state(
+            model.initial_state[band.rows], mine.events)[..., 2], band)
+        got = cm[:, band.rows]
+        report["commute"] = (bool(torch.equal(got, whole)), float(
+            ((got - whole).abs() / (whole.abs() + 1e-30)).max()))
+        step = make_sharded_step(
+            make_mcmc_step(model, 16, event_config(Tt), band), mesh,
+            shard_space=True)
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        new, _ = step(mine, shard_tunables(tune, mesh), None, noise)
+        sync()
+        report["step_ms"] = (time.perf_counter() - t0) * 1e3
+        report["step_launches"] = read_launches()["fused_sweep"]
+        events = gather_space(new.events.cpu().numpy(), mesh, 1,
+                              to_lead=True)
+        report["step"] = None if not lead else gather_chains(
+            (new.u.cpu().numpy(), events), mesh, dst=0)
+        del full, noise, mine, new, cm, got, whole, inp
+
+        # 11b: the driver with the location axis sharded, phase 6's plan
+        warmup, bursts, draws, thin = spec["plan"]
+        log_file = os.path.join(tmp, "space_log.jsonl") if rank == 0 else None
+        cfg = dict(num_chains=Cc, num_bursts=bursts, num_burst_samples=draws,
+                   thin=thin, store_warmup=False, warmup=warmup,
+                   autotune_acceptance=True, pooled_adaptation=True,
+                   use_mesh=True, space_devices=space, log_file=log_file)
+        store = MemoryPosterior() if rank == 0 else None
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        driver.run_mcmc(model, state, uk_driver_config(Tt), cfg, store,
+                        num_chains=Cc, seed=0, device=dev)
+        sync()
+        report["wall_s"] = time.perf_counter() - t0
+        report["launches"] = read_launches()["fused_sweep"]
+        if rank == 0:
+            report["store"] = {k: v.shape for k, v in store.data.items()}
+            report["events_ok"] = bool(
+                (store["samples/seir"] >= 0).all()
+                and (store["samples/seir"] == np.round(
+                    store["samples/seir"])).all())
+            with open(log_file) as f:
+                report["log"] = [json.loads(line) for line in f]
+        del model, state, store
+
+        # 11c: the MSOA transition, K2 on the rank's band of block rows;
+        # then at M = 7000, whose 55 block rows do not split
+        report["msoa"] = {}
+        for Mx, timed_n in ((spec["msoa_M"], spec["msoa_timed"]),
+                            (spec["fallback_M"], SPACE_FALLBACK)):
+            msoa, one, _ = build_msoa(torch, dev, Mx, spec["msoa_T"],
+                                      sparse=spec["sparse"])
+            Cm = slices  # one chain a chain slice
+            mstate = ChainState(*[x.expand((Cm,) + x.shape[1:]).contiguous()
+                                  for x in one])
+            mband = SpaceBand(mesh, Mx)
+            op = msoa.data.Cstar_bsr
+            rows = mband.bsr_band(op)
+            mstep = make_sharded_step(make_mcmc_step(
+                msoa, 16, msoa_config(spec["msoa_T"]), mband), mesh,
+                shard_space=True)
+            mtune = shard_tunables(HMCTunables(
+                step_size=torch.full((Cm, 1), 0.01, device=dev),
+                inv_mass_diag=torch.ones_like(mstate.u)), mesh)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(driver.rank_seed(0, chain_rank, slices))
+            st = shard_chain_state(mstate, mesh, shard_space=True)
+            for _ in range(N_UNTIMED if Mx == spec["msoa_M"] else 0):
+                st, _ = mstep(st, mtune, gen)
+            sync()
+            calls = bs.bsr_band_matmul.calls
+            reset_launches()
+            t0 = time.perf_counter()
+            for _ in range(timed_n):
+                st, tr = mstep(st, mtune, gen)
+            sync()
+            out = {"ms": (time.perf_counter() - t0) / timed_n * 1e3,
+                   "launches": read_launches()["bsr_matmul"],
+                   "band_calls": bs.bsr_band_matmul.calls - calls,
+                   "rows": None if rows is None else rows.rows,
+                   "R": op.col_idx.shape[0], "timed": timed_n,
+                   "finite": bool(torch.isfinite(
+                       tr.hmc.target_log_prob).all())}
+            if rows is not None:  # the band launch, outside the count
+                x = (seir.compute_state(msoa.initial_state, one.events)
+                     [..., 2] / msoa.data.N[:, None])
+                y = rows.matmul(x)
+                plain = bs._plain_band(op.values, op.col_idx, op.perm,
+                                       rows.r0, rows.r1, x)
+                scale = bs._plain(op.values.abs(), op.col_idx, op.perm,
+                                  op.inv_perm, x.abs())
+                out["band_err"] = float(((y - plain).abs()
+                                         / (scale + 1e-30)).max())
+                out["bitwise"] = bool(torch.equal(mband.sum(y.clone()),
+                                                  op.matmul(x)))
+            report["msoa"][Mx] = out
+            del msoa, one, mstate, st, op, rows
+        with open(os.path.join(tmp, f"space{rank}.pkl"), "wb") as f:
+            pickle.dump(report, f)
+        say(f"phase 11 rank {rank} on {dev} done")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def one_process_msoa(torch, dev, M, T, C, n, sparse, space):
+    """The MSOA transition of ``C`` chains in one process: ms per
+    transition over ``n`` after 2 untimed; on the card also K2 alone
+    (CUDA events) on rank 0's band of ``space`` bands of block rows and on
+    all of them, at the transition's ``x [1, M, T]``, and the band's bound
+    (its populated blocks, x and the band's rows of y moved once over the
+    card's memory rate, or its 3xTF32 products over the tensor cores'
+    rate, the larger).  Returns (ms per transition, band ms, whole ms,
+    band bound ms)."""
+    from covid19uk_tpu_torch.inference.gibbs import (
+        ChainState, HMCTunables, make_mcmc_step)
+    from covid19uk_tpu_torch.models import seir
+
+    model, one, gen = build_msoa(torch, dev, M, T, sparse=sparse)
+    band_ms = whole_ms = bound_ms = None
+    op = model.data.Cstar_bsr
+    if dev.type == "cuda" and op.col_idx.shape[0] % space == 0:
+        x = (seir.compute_state(model.initial_state, one.events)[..., 2]
+             / model.data.N[:, None])
+        band = op.row_band(0, space)
+        band_ms = cuda_ms(torch, lambda: band.matmul(x), K2_REPS)
+        whole_ms = cuda_ms(torch, lambda: op.matmul(x), K2_REPS)
+        B = op.values.shape[2]
+        blocks = int((op.values[band.r0:band.r1] != 0).flatten(2).any(2)
+                     .sum())
+        n_bytes = 4 * (blocks * B * B + M * T + band.rows * B * T
+                       + band.rows * op.col_idx.shape[1])
+        ops = 3 * 2.0 * blocks * B * B * T
+        bound_ms = max(n_bytes / HBM_BYTES_PER_S,
+                       ops / TF32_OPS_PER_S) * 1e3
+    state = ChainState(*[x.expand((C,) + x.shape[1:]).contiguous()
+                         for x in one])
+    step = make_mcmc_step(model, 16, msoa_config(T))
+    tune = HMCTunables(step_size=torch.full((C, 1), 0.01, device=dev),
+                       inv_mass_diag=torch.ones_like(state.u))
+    for _ in range(N_UNTIMED):
+        state, _ = step(state, tune, gen)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        state, _ = step(state, tune, gen)
+    sync()
+    return ((time.perf_counter() - t0) / n * 1e3, band_ms, whole_ms,
+            bound_ms)
+
+
+def phase_11(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS,
+             space=SPACE, msoa_M=MSOA_SPACE_M, fallback_M=MSOA_M,
+             msoa_T=MSOA_T, msoa_timed=SPACE_TIMED, sparse="auto"):
+    """Phase 11: ``ranks`` ranks on ``dev`` as a (chain, space) mesh of
+    ``space`` ranks a space group (on one card all on ``cuda:0`` over
+    gloo, on as many cards as ranks one each over NCCL).  11a: the
+    transition of C chains with their locations sharded (fused sweep) on
+    a StepNoise replay against the one-process transition: events
+    identical, u within rtol 1e-5 and an atol of float32's own error in
+    the one-process transition (largest difference printed), one K1
+    launch a rank, the band's commute against the rows of the whole
+    product; 11b: ``run_mcmc`` with ``use_mesh`` and ``space_devices`` on
+    ``plan``: one K1 launch per transition on each rank, rank 0's store
+    of all C chains and M locations, final-window HMC acceptance in (0,
+    1], each rank's ms/transition beside phase 6's; 11c: the MSOA
+    transition at ``msoa_M`` (one chain a chain slice): one K2 launch a
+    transition on each rank over its band of ``R / space`` block rows,
+    the band launch within 1e-5 of its plain version (of ``|A| @ |x|``),
+    the bands summed over the group bitwise the whole launch, each rank's
+    ms/transition beside one process's; and at ``fallback_M``, whose
+    block rows do not split, the whole operator on every rank.  Returns
+    (K1 launches of 11a and 11b, K2 launches of 11c, on all ranks; 11b's
+    bursts' ms per transition; 11c's ms per transition of each rank and
+    of one process)."""
+    import pickle
+
+    from covid19uk_tpu_torch.inference.gibbs import (
+        HMCTunables, StepNoise, make_mcmc_step, resolve_event_config,
+        sweep_config)
+    from covid19uk_tpu_torch.inference.warmup import WarmupSchedule
+    from covid19uk_tpu_torch.models import seir
+    from covid19uk_tpu_torch.ops import fused_sweep as fs
+
+    t0 = time.perf_counter()
+    problems = []
+    on_card = dev.type == "cuda"
+    slices = ranks // space
+    with tempfile.TemporaryDirectory() as tmp:
+        model, state, gen = build_chains(torch, dev, M, T, C)
+        scfg = sweep_config(resolve_event_config(event_config(T), M))
+        P = state.u.shape[1]
+        tbl, ttbl = fs.draw_tables(gen, C, M, T, scfg, dev)
+        noise = StepNoise(torch.randn((C, P), generator=gen, device=dev),
+                          torch.rand((C,), generator=gen, device=dev),
+                          tbl, ttbl)
+        commute = model.commute_pressure(seir.compute_state(
+            model.initial_state, state.events)[..., 2])
+        np.savez(os.path.join(tmp, "step.npz"),
+                 u=state.u.cpu().numpy(), events=state.events.cpu().numpy(),
+                 z=noise.z.cpu().numpy(), u_accept=noise.u_accept.cpu()
+                 .numpy(), tbl=tbl.cpu().numpy(), ttbl=ttbl.cpu().numpy(),
+                 commute=commute.cpu().numpy())
+        tune = HMCTunables(
+            step_size=torch.full((C, 1), STEP_SIZE, device=dev),
+            inv_mass_diag=torch.ones_like(state.u))
+        step = make_mcmc_step(model, 16, event_config(T))
+        want, _ = step(state, tune, None, noise)
+        want_u, want_ev = want.u.cpu().numpy(), want.events.cpu().numpy()
+        # float32's own error in this transition: the same transition of
+        # the model in float64 on the same inputs and noise
+        model64 = build_chains(torch, dev, M, T, 1, dtype=torch.float64)[0]
+        want64, _ = make_mcmc_step(model64, 16, event_config(T))(
+            type(state)(*[x.double() for x in state]),
+            HMCTunables(*[x.double() for x in tune[:2]]), None,
+            noise._replace(z=noise.z.double(),
+                           u_accept=noise.u_accept.double()))
+        f32_err = float((want.u.double() - want64.u).abs().max())
+        del model, state, want, commute, noise, model64, want64
+        one_ms, band_ms, whole_ms, bound_ms = one_process_msoa(
+            torch, dev, msoa_M, msoa_T, slices, msoa_timed, sparse, space)
+        with open(os.path.join(tmp, "spec.json"), "w") as f:
+            json.dump(dict(M=M, T=T, C=C, plan=plan, ranks=ranks,
+                           space=space, msoa_M=msoa_M, fallback_M=fallback_M,
+                           msoa_T=msoa_T, msoa_timed=msoa_timed,
+                           sparse=sparse), f)
+        t1 = time.perf_counter()
+        spawn_ranks(tmp, dev.type, ranks, "--space-worker", "phase 11")
+        wall = time.perf_counter() - t1
+        reports = []
+        for r in range(ranks):
+            with open(os.path.join(tmp, f"space{r}.pkl"), "rb") as f:
+                reports.append(pickle.load(f))
+
+    mesh = f"{slices} x {space} (chain x space)"
+    # 11a
+    got_u, got_ev = reports[0]["step"]
+    diff = np.nonzero((got_ev != want_ev).reshape(C, -1).any(1))[0]
+    rel = np.abs(got_u - want_u) / np.maximum(np.abs(want_u), 1e-30)
+    worst = np.unravel_index(int(np.argmax(rel)), rel.shape)
+    # rtol 1e-5, and for near-zero entries an atol of float32's own
+    # error in the one-process transition (its largest distance from the
+    # same transition in float64): the ranks sum the bands' parts, and
+    # float32 rounds those sums otherwise
+    bad = np.argwhere(~np.isclose(got_u, want_u, rtol=1e-5, atol=f32_err))
+    strict = len({int(c) for c in np.argwhere(~np.isclose(
+        got_u, want_u, rtol=1e-5, atol=0.0))[:, 0]})
+    if len(diff):
+        problems.append(f"11a: events of {len(diff)} chains differ, first "
+                        f"chain {int(diff[0])}")
+    if len(bad):
+        problems.append(f"11a: u of {len({int(c) for c in bad[:, 0]})} "
+                        f"chains off by more than rtol 1e-5 (atol "
+                        f"{f32_err!r}), first "
+                        f"{tuple(int(i) for i in bad[0])}")
+    launches = [r["step_launches"] for r in reports]
+    if on_card and launches != [1] * ranks:
+        problems.append(f"11a: K1 launches per rank {launches}, not 1")
+    commute = [r["commute"] for r in reports]
+    if max(c[1] for c in commute) > 1e-5:
+        problems.append(f"11a: the band's commute off the whole product's "
+                        f"rows by {commute}")
+    say(f"phase 11a sharded transition over a {mesh} mesh of {C} chains "
+        f"(M={M} locations, {M // space} a rank, T={T}) against the "
+        f"one-process transition on the same StepNoise: events of "
+        f"{C - len(diff)} of {C} chains identical, u max relative "
+        f"difference {float(rel[worst])!r} at {tuple(int(i) for i in worst)}"
+        f" ({float(got_u[worst])!r} against {float(want_u[worst])!r}; "
+        f"bitwise equal: {bool(np.array_equal(got_u, want_u))}; largest "
+        f"absolute difference {float(np.abs(got_u - want_u).max())!r} "
+        f"against float32's own error {f32_err!r} in the one-process "
+        f"transition; {strict} chains off by more than rtol 1e-5 with atol"
+        f" 0), K1 "
+        f"launches per rank {launches}; the band's commute against the "
+        f"whole product's rows (bitwise, max relative difference) "
+        f"{commute}; ms per rank {[round(r['step_ms'], 3) for r in reports]}")
+
+    # 11b
+    warmup, bursts, draws, thin = plan
+    transitions = WarmupSchedule(**warmup).total + bursts * draws
+    k1 = [r["launches"] for r in reports]
+    if on_card and k1 != [transitions] * ranks:
+        problems.append(f"11b: K1 launches per rank {k1} in {transitions} "
+                        f"transitions each")
+    stored = bursts * draws // thin
+    shapes = reports[0]["store"]
+    if (tuple(shapes["samples/seir"]) != (stored, C, M, T, 3)
+            or not reports[0]["events_ok"]):
+        problems.append(f"11b: rank 0's store {shapes['samples/seir']}")
+    log = reports[0]["log"]
+    final = [e for e in log if e["event"] == "window"][-1]
+    if not 0.0 < final["hmc_accept"] <= 1.0:
+        problems.append(f"11b: final-window HMC acceptance "
+                        f"{final['hmc_accept']}")
+    burst_ms = [e["wall_s"] / e["draws"] * 1e3 for e in log
+                if e["event"] == "burst"]
+    for e in log:
+        if e["event"] in ("window", "burst"):
+            say(f"phase 11b {e.get('name', 'burst')} {e['draws']} draws: "
+                f"{e['draws'] * C / e['wall_s']!r} draws/sec, "
+                f"{e['wall_s'] / e['draws'] * 1e3!r} ms/transition, HMC "
+                f"acceptance {e['hmc_accept']}")
+    say(f"phase 11b driver over a {mesh} mesh: bursts {burst_ms} "
+        f"ms/transition against phase 6's {phase6_ms!r} on one process; "
+        f"each rank's whole run "
+        f"{[r['wall_s'] / transitions * 1e3 for r in reports]} "
+        f"ms/transition; K1 launches per rank {k1} in {transitions} "
+        f"transitions; final-window HMC acceptance {final['hmc_accept']}; "
+        f"rank 0's store {shapes['samples/seir']}")
+
+    # 11c
+    k2 = 0
+    msoa_ms = {}
+    for Mx in (msoa_M, fallback_M):
+        outs = [r["msoa"][Mx] for r in reports]
+        o = outs[0]
+        n, R = o["timed"], o["R"]
+        split = R % space == 0
+        k2 += sum(x["launches"] for x in outs)
+        if on_card and [x["launches"] for x in outs] != [n] * ranks:
+            problems.append(f"11c M={Mx}: K2 launches per rank "
+                            f"{[x['launches'] for x in outs]} in {n}")
+        calls = [x["band_calls"] for x in outs]
+        if calls != ([n] * ranks if split else [0] * ranks):
+            problems.append(f"11c M={Mx}: band products per rank {calls}")
+        if split and [x["rows"] for x in outs] != [R // space] * ranks:
+            problems.append(f"11c M={Mx}: band rows "
+                            f"{[x['rows'] for x in outs]}")
+        if not all(x["finite"] for x in outs):
+            problems.append(f"11c M={Mx}: non-finite logp")
+        if split:
+            errs = [x["band_err"] for x in outs]
+            if max(errs) > 1e-5:
+                problems.append(f"11c: band launch off its plain version "
+                                f"by {errs} of |A|@|x|")
+            if not all(x["bitwise"] for x in outs):
+                problems.append("11c: the bands summed differ from the "
+                                "whole launch")
+            msoa_ms = {"ranks": [x["ms"] for x in outs], "one": one_ms,
+                       "k2_band_ms": band_ms, "k2_whole_ms": whole_ms,
+                       "k2_band_bound_ms": bound_ms}
+            times = ""
+            if on_card:
+                times = (f"; K2 alone in one process (CUDA events) on rank "
+                         f"0's {R // space} block rows {band_ms!r} ms "
+                         f"(bound {bound_ms!r} ms), on all {R} "
+                         f"{whole_ms!r} ms")
+            say(f"phase 11c MSOA M={Mx} (R={R} block rows) over a {mesh} "
+                f"mesh, {slices} chain(s): {n} timed transitions, "
+                f"{[x['ms'] for x in outs]} ms/transition per rank against "
+                f"one process's {one_ms!r}; K2 launches per rank "
+                f"{[x['launches'] for x in outs]}, each over "
+                f"{o['rows']} block rows; band launch against its plain "
+                f"version {errs} of |A|@|x|; bands summed bitwise the "
+                f"whole launch on every rank: "
+                f"{[x['bitwise'] for x in outs]}{times}")
+        else:
+            say(f"phase 11c MSOA M={Mx} (R={R} block rows, not a multiple of"
+                f" {space}): the operator stays whole on every rank; {n} "
+                f"transitions, {[x['ms'] for x in outs]} ms/transition per "
+                f"rank, K2 launches per rank "
+                f"{[x['launches'] for x in outs]} (whole launches), band "
+                f"products {calls}")
+    if problems:
+        raise AssertionError("phase 11: " + "; ".join(problems))
+    say(f"phase 11 on {card or 'the CPU'}: {wall:.1f} s for the ranks "
+        f"({time.perf_counter() - t0:.1f} s)")
+    k1_all = sum(launches) + sum(k1)
+    return k1_all, k2, burst_ms, msoa_ms
+
+
 def main(argv):
     if argv[:1] == ["--rank-worker"]:
         return rank_worker(argv[1:])
+    if argv[:1] == ["--space-worker"]:
+        return space_worker(argv[1:])
     rehearse = "--rehearse" in argv
-    faulthandler.dump_traceback_later(600, exit=True)
+    faulthandler.dump_traceback_later(1000, exit=True)
     t0 = time.perf_counter()
     import torch
 
@@ -1828,6 +2303,9 @@ def main(argv):
         phase_10(torch, torch.device("cpu"), **TINY, plan=UK_DRIVER,
                  phase6_ms=fused_ms[0])
         phase_10d(torch, "cpu", **TINY)
+        phase_11(torch, torch.device("cpu"), **TINY, plan=REHEARSE_DRIVER,
+                 phase6_ms=fused_ms[0], msoa_M=256, fallback_M=384,
+                 msoa_T=30, msoa_timed=2, sparse=True)
         return 3
 
     card = card_line()
@@ -1891,6 +2369,12 @@ def main(argv):
     k1_launches += mesh_launches
     uk_transitions += RANKS * mesh_transitions
     phase_10d(torch, "cuda", M, T, C, card)
+    k1_space, k2_space, _, _ = phase_11(
+        torch, torch.device("cuda"), M, T, C, UK_DRIVER, fused_ms[0], card)
+    k1_launches += k1_space
+    uk_transitions += SPACE * (1 + mesh_transitions)
+    k2_launches += k2_space
+    msoa_transitions += SPACE * (SPACE_TIMED + SPACE_FALLBACK)
 
     kernels = [
         dict(name="fused_sweep", route="cuda",

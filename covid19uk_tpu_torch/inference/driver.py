@@ -12,15 +12,21 @@ written to the posterior store by a worker thread while burst b+1
 computes; the checkpoint lags one burst.  Runs on ``device="cuda"``
 unless the caller asks for the CPU, and raises without a card.
 
-With ``use_mesh`` over several ranks (``parallel/distributed.py``), each
-rank runs its ``C / world`` chains as its batch, on its own device, with a
-generator of its own (:func:`rank_seed`).  The ranks meet only at window
-and burst boundaries, where the driver waits for the host anyway: they
-pool the step size and mass over all chains, tune the move decays on the
-acceptance of all chains, run the convergence gate on the draws of all
-chains, and send their draws and traces to rank 0, which alone writes the
-posterior, the checkpoint and the log.  These collectives go through the
-host (``parallel/sharding.py:gather_chains``) on gloo and NCCL alike.
+With ``use_mesh`` over several ranks (``parallel/distributed.py``), the
+ranks form a (chain, space) mesh of ``world / space_devices`` chain
+slices.  Each slice's ``C / (world / space_devices)`` chains run as one
+batch, on each rank's own device, with a generator of the slice's own
+(:func:`rank_seed` of the chain rank).  With ``space_devices > 1`` the
+slice's ``space_devices`` ranks (its space group) hold its chains'
+events on their bands of locations and run each transition together
+(``parallel/sharding.py:SpaceBand``).  The chain slices meet only at
+window and burst boundaries, where the driver waits for the host anyway:
+they pool the step size and mass over all chains, tune the move decays on
+the acceptance of all chains, run the convergence gate on the draws of
+all chains, and send their draws (bands joined first) and traces to rank
+0, which alone writes the posterior, the checkpoint and the log.  These
+collectives go through the host (``parallel/sharding.py:gather_chains``,
+``gather_space``) on gloo and NCCL alike.
 """
 
 import os
@@ -56,10 +62,16 @@ from covid19uk_tpu_torch.parallel.diagnostics import (
     gate_statistics,
     potential_scale_reduction,
 )
-from covid19uk_tpu_torch.parallel.mesh import chain_mesh
+from covid19uk_tpu_torch.parallel.mesh import (
+    axis,
+    chain_mesh,
+    chain_space_mesh,
+)
 from covid19uk_tpu_torch.parallel.sharding import (
+    SpaceBand,
     chain_rows,
     gather_chains,
+    gather_space,
     shard_chain_state,
 )
 from covid19uk_tpu_torch.utils import checkpoint as ckpt
@@ -94,9 +106,13 @@ def check_ported(config, world=1, num_chains=1):
     device count.  With one rank ``use_mesh`` and ``space_devices`` do
     nothing: the run takes the plain path.  With several, ``use_mesh`` is
     required, ``space_devices`` must divide ``world`` and ``num_chains``
-    must be a multiple of ``world / space_devices`` (``ValueError``), and
-    ``space_devices > 1`` raises ``NotImplementedError``: the space axis is
-    not ported."""
+    must be a multiple of ``world / space_devices`` (``ValueError``; the
+    location count must be a multiple of ``space_devices`` too, which
+    ``run_mcmc`` checks).  ``space_devices > 1`` runs the location axis
+    sharded, but with ``compensate_gamma0``, ``pair_compensate_gamma0`` or
+    ``gamma_gibbs`` it raises ``NotImplementedError``: these read location
+    sums of their own (the person-time potential, the refresh's Newton
+    terms), which the space axis does not port yet."""
     if world == 1:
         return
     if not config.use_mesh:
@@ -112,11 +128,14 @@ def check_ported(config, world=1, num_chains=1):
         raise ValueError(
             f"num_chains={num_chains} must be a multiple of the chain-axis "
             f"device count {chain_dev} when use_mesh is set")
-    if space > 1:
+    off_default = [name for name in ("compensate_gamma0",
+                                     "pair_compensate_gamma0", "gamma_gibbs")
+                   if getattr(config, name)]
+    if space > 1 and off_default:
         raise NotImplementedError(
-            "space_devices > 1 over several ranks (the event tensor's "
-            "location axis sharded) is not ported: the space-axis slice "
-            "comes later (ROADMAP.md §1)")
+            f"space_devices > 1 with {', '.join(off_default)} is not "
+            "ported: the off-default event kernels over a space axis come "
+            "in a later slice (ROADMAP.md §1)")
 
 
 def rank_seed(seed, rank, world):
@@ -338,10 +357,12 @@ def run_mcmc(
             f"chains, num_chains is {C}"
         )
     mesh = None
+    space = config.space_devices if world > 1 else 1
     if world > 1:
-        mesh = chain_mesh()
-        state = shard_chain_state(state, mesh)
-        _log(f"Sharding {C} chains over {world} ranks")
+        mesh = chain_space_mesh(world, space) if space > 1 else chain_mesh()
+        state = shard_chain_state(state, mesh, shard_space=space > 1)
+        _log(f"Sharding {C} chains over {world} ranks"
+             + (f", {M} locations over {space}" if space > 1 else ""))
     lead = distributed.rank() == 0
     squeeze = C == 1
     resuming = checkpoint_path is not None and ckpt.exists(checkpoint_path)
@@ -428,8 +449,10 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
     this rank's rows of the chains, and rank 0 alone writes (``posterior``
     is None elsewhere)."""
     local, P = state.u.shape  # this rank's chains
-    world = 1 if mesh is None else distributed.world()
     rank = distributed.rank()
+    # one generator a chain slice: the ranks of a space group draw alike
+    world, chain_rank = (1, 0) if mesh is None else axis(mesh, "chain")
+    space_size, space_rank = (1, 0) if mesh is None else axis(mesh, "space")
     C = local * world
     dtype = state.u.dtype
     T, M = model.num_steps, model.data.num_locations
@@ -439,29 +462,44 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
     warmup_stored = schedule.total if config.store_warmup else 0
     offset = 0
     gen = torch.Generator(device=device)
-    gen.manual_seed(rank_seed(seed, rank, world))
+    gen.manual_seed(rank_seed(seed, chain_rank, world))
+    space = SpaceBand(mesh, M) if space_size > 1 else None
 
     def gather(tree, axis=0, dst=None):
-        """``tree``'s chain axis over all ranks (on ``dst`` only)."""
+        """``tree``'s chain axis over all ranks (on ``dst`` only; only
+        the first rank of each space group takes part then)."""
         if mesh is None:
             return tree
+        if dst is not None and space_rank != 0:
+            return None
         return gather_chains(tree, mesh, axis, dst)
+
+    def gather_draws(tree, axis=0):
+        """``gather(tree, axis, dst=0)`` of a ``(ChainState, ...)`` tree,
+        the bands of its events joined first."""
+        if space is not None:
+            events = gather_space(tree[0].events, mesh, axis + 1,
+                                  to_lead=True)
+            tree = (tree[0]._replace(events=events),) + tuple(tree[1:])
+        return gather(tree, axis, dst=0)
 
     # Phase-split kernel stacks: the episode-translation pair moves exist
     # to equilibrate the slow infectious-person-time mode, which is a
     # *warmup* concern; warmup windows run with the configured
     # num_pair_updates, sampling bursts with num_pair_updates_sampling
     # (default 0).  Both stacks leave the same distribution invariant.
-    step = make_mcmc_step(model, NUM_LEAPFROG_STEPS, event_config)
+    step = make_mcmc_step(model, NUM_LEAPFROG_STEPS, event_config, space)
     step_sample = make_mcmc_step(
         model,
         NUM_LEAPFROG_STEPS,
         event_config._replace(
             num_pair_updates=config.num_pair_updates_sampling),
+        space,
     )
     if config.debug_nans:
-        step, step_sample = nans.checked_step(step), nans.checked_step(
-            step_sample)
+        agree = None if space is None else space.any
+        step, step_sample = (nans.checked_step(step, agree),
+                             nans.checked_step(step_sample, agree))
 
     def to_samples(draws):
         u_con = constrain_parameters(torch.from_numpy(draws.u)).numpy()
@@ -555,7 +593,7 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
             (draws if config.store_warmup else None, traces))
         host_traces = gather(host_traces, axis=1)
         if config.store_warmup:
-            host_draws = gather(host_draws, axis=1, dst=0)
+            (host_draws,) = gather_draws((host_draws,), axis=1) or (None,)
             if rank == 0:
                 write_at(host_draws, host_traces, offset)
             offset += n
@@ -600,19 +638,19 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
         host_state, key, step_size, inv_mass, offset, extra = ckpt.load(
             checkpoint_path, state
         )
-        # a run over several ranks saves every rank's generator state
+        # a run over several chain slices saves every slice's generator
         saved = key.shape[0] if key.ndim == 2 else 1
         if saved != world:
             raise ValueError(
                 f"the checkpoint is of a run over {saved} ranks, this run "
                 f"has {world}: resume with as many ranks")
-        if mesh is not None:
-            rows = chain_rows(C, mesh)
-            host_state = ChainState(*[x[rows] for x in host_state])
-            key, step_size, inv_mass = key[rank], step_size[rows], inv_mass[
-                rows]
         state = ChainState(*[torch.as_tensor(x, device=device)
                              for x in host_state])
+        if mesh is not None:
+            rows = chain_rows(C, mesh)
+            state = shard_chain_state(state, mesh, space is not None)
+            key, step_size, inv_mass = key[chain_rank], step_size[
+                rows], inv_mass[rows]
         gen.set_state(torch.as_tensor(key, dtype=torch.uint8))
         step_size = torch.as_tensor(step_size, device=device)
         inv_mass = torch.as_tensor(inv_mass, device=device)
@@ -725,8 +763,8 @@ def _sample(model, state, event_config, config, schedule, posterior, log,
             last = ChainState(u=draws.u[-1], events=draws.events[-1])
             accepted = traces.hmc.is_accepted
             if mesh is not None:  # every chain's, on rank 0
-                sent = gather((kept, traces_w, accepted), axis=1, dst=0)
-                ends = gather((last, key[None]), dst=0)
+                sent = gather_draws((kept, traces_w, accepted), axis=1)
+                ends = gather_draws((last, key[None]))
                 if rank == 0:
                     (kept, traces_w, accepted), (last, key) = sent, ends
             wall = time.perf_counter() - t0

@@ -360,13 +360,24 @@ def event_sweep(model, cfg, ctx, events, state, commute, logp, tune,
 
 
 def make_mcmc_step(model, num_leapfrog_steps: int,
-                   event_config: EventKernelConfig):
+                   event_config: EventKernelConfig, space=None):
     """Builds the MCMC transition for a batch of chains.
 
     Returns ``step(state, tune, generator=None, noise=None) ->
     (ChainState, StepTrace)``.  Randomness comes from ``generator`` (on
     the model's device); ``noise`` (:class:`StepNoise`) replaces the HMC
     draws and the fused sweep's tables.
+
+    With ``space`` (``parallel.sharding.SpaceBand``) the state's events
+    are this rank's band of locations, and every rank of the space group
+    runs the step together with generators seeded alike: the commute once
+    from the gathered ``I/N``; HMC on the band's part of the likelihood,
+    the log-prior and the Jacobian added once (on the group's first rank),
+    each value+grad pass summed over the group; then the event sweep on
+    the gathered events (their state recomputed) and the whole commute,
+    the same on every rank, each keeping its band.  The options that read location sums of their own
+    (the gamma0-compensated moves, the gamma refresh) raise.  The step
+    carries ``space`` as its attribute.
     """
     T = model.num_steps
     M = model.data.num_locations
@@ -376,7 +387,13 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
             f"t_range={cfg.t_range} must satisfy 0 <= lo < hi <= T={T}"
         )
     compensated = moves_gamma0(cfg)
+    if space is not None and (compensated or cfg.gamma_gibbs):
+        raise NotImplementedError(
+            "the gamma0-compensated moves and the gamma refresh over a "
+            "space axis are not ported (ROADMAP.md §1)")
     sweep_cfg = sweep_config(cfg) if cfg.fused_sweep else None
+    rows = slice(None) if space is None else space.rows
+    initial_state = model.initial_state[rows]
 
     def step(state: ChainState, tune: HMCTunables, generator=None,
              noise=None):
@@ -385,24 +402,37 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
         # The state timeseries, the commuting product and every
         # parameter-independent piece of the likelihood depend only on the
         # events, which HMC holds fixed: computed once per transition.
-        full_state = seir.compute_state(model.initial_state, state.events)
-        commute = model.commute_pressure(full_state[..., 2])
-        loglik = model.reduced_loglik_fn(state.events, full_state, commute)
+        full_state = seir.compute_state(initial_state, state.events)
+        commute = model.commute_pressure(full_state[..., 2], space)
+        loglik = model.reduced_loglik_fn(
+            state.events, full_state, commute[..., rows, :], rows)
 
         def logdensity(u):
             params = unpack_parameters(constrain_parameters(u), T, M)
-            return (
-                model.log_prior(params)
-                + loglik(params)
-                + constrain_log_det_jacobian(u)
-            )
+            if space is None:
+                return (
+                    model.log_prior(params)
+                    + loglik(params)
+                    + constrain_log_det_jacobian(u)
+                )
+            part = loglik(params)
+            if space.lead:  # the replicated terms, once over the group
+                part = part + (model.log_prior(params)
+                               + constrain_log_det_jacobian(u))
+            return part
 
         u_new, hmc_info = hmc.hmc_step(
             state.u, logdensity, tune.step_size, num_leapfrog_steps,
             tune.inv_mass_diag, generator,
             z=None if noise is None else noise.z,
             u_accept=None if noise is None else noise.u_accept,
+            reduce=None if space is None else space.sum_value_grad,
         )
+        events = state.events
+        if space is not None:  # the sweep runs on all M locations
+            events = space.gather(events, dim=1)
+            # integer counts: the same bits as the bands' states, joined
+            full_state = seir.compute_state(model.initial_state, events)
 
         params = unpack_parameters(constrain_parameters(u_new), T, M)
         ctx0 = make_context(model, params)
@@ -414,7 +444,7 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
 
         if not cfg.fused_sweep:
             # gamma0 is u[:, 3] (identity bijection)
-            res = event_sweep(model, cfg, ctx0, state.events, full_state,
+            res = event_sweep(model, cfg, ctx0, events, full_state,
                               commute, logp0, tune, generator,
                               gamma0=u_new[:, 3] if compensated else None)
             if compensated or cfg.gamma_gibbs:
@@ -430,7 +460,7 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
                 u_new[:, 3:5] = g_new
             trace = StepTrace(hmc_info, *res.infos, comp_ei=res.comp,
                               pair=res.pair, gamma=gamma)
-            return ChainState(u=u_new, events=res.events), trace
+            return ChainState(u=u_new, events=band(res.events)), trace
 
         decays = torch.stack(
             [
@@ -452,7 +482,7 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
         else:
             tbl, ttbl = noise.tbl, noise.ttbl
         ev_f, st_f, cm_f, logp_f, tr = _fs.fused_sweep(
-            tbl, ttbl, state.events, full_state, commute, logp0,
+            tbl, ttbl, events, full_state, commute, logp0,
             ctx0.exp_eta, ctx0.psi_w, ctx0.rate_ir_t, ctx0.N, ctx0.Cstar,
             decays, sweep_cfg,
         )
@@ -498,6 +528,10 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
             pair=pair,
             gamma=gamma,
         )
-        return ChainState(u=u_new, events=ev_f), trace
+        return ChainState(u=u_new, events=band(ev_f)), trace
 
+    def band(events):
+        return events if space is None else events[:, rows].contiguous()
+
+    step.space = space
     return step

@@ -4,6 +4,9 @@ Port of ``covid19uk_tpu/inference/hmc.py`` over a ``[C, P]`` batch of
 chains: the log-density returns ``[C]``, and the gradient of its sum over
 chains is each chain's gradient.  ``inv_mass_diag`` is the inverse mass
 (the posterior-variance estimate): momentum ~ N(0, diag(1/inv_mass)).
+With ``reduce``, the log-density is one rank's part of a sum over ranks
+(the space-sharded driver): each value+grad pass sums the parts' values
+and gradients with ``reduce`` before the step uses them.
 """
 
 from typing import Callable, NamedTuple
@@ -18,12 +21,18 @@ class HMCInfo(NamedTuple):
     step_size: torch.Tensor
 
 
-def value_and_grad(logdensity_fn, q):
-    """``([C], [C, P])``: the density and each chain's gradient."""
+def value_and_grad(logdensity_fn, q, reduce=None):
+    """``([C], [C, P])``: the density and each chain's gradient; with
+    ``reduce``, ``reduce(value, grad)`` of this process's part.  The
+    gradient is taken of the part alone and summed once: an all-reduce
+    inside the autograd graph would sum the cotangents again in
+    backward."""
     with torch.enable_grad():
         q = q.detach().requires_grad_(True)
         lp = logdensity_fn(q)
         (grad,) = torch.autograd.grad(lp.sum(), q)
+    if reduce is not None:
+        return reduce(lp.detach(), grad)
     return lp.detach(), grad
 
 
@@ -36,6 +45,7 @@ def hmc_step(
     generator=None,
     z=None,
     u_accept=None,
+    reduce=None,
 ):
     """One HMC transition for every chain.
 
@@ -49,6 +59,8 @@ def hmc_step(
       z, u_accept: optional standard-normal ``[C, P]`` and uniform ``[C]``
         draws used instead of the generator (the tests inject the JAX
         package's draws).
+      reduce: optional ``(value, grad) -> (value, grad)`` applied to each
+        pass's value and gradient (:func:`value_and_grad`).
 
     Returns:
       ``(new_position, HMCInfo)``.
@@ -64,7 +76,7 @@ def hmc_step(
         u_accept = torch.rand(position.shape[:-1], generator=generator,
                               dtype=dtype, device=device)
 
-    logp0, grad0 = value_and_grad(logdensity_fn, position)
+    logp0, grad0 = value_and_grad(logdensity_fn, position, reduce)
     momentum = z * torch.rsqrt(inv_mass_diag)
 
     def kinetic(p):
@@ -74,7 +86,7 @@ def hmc_step(
     for _ in range(num_leapfrog_steps):
         p = p + 0.5 * step_size * grad
         q = q + step_size * inv_mass_diag * p
-        logp_new, grad = value_and_grad(logdensity_fn, q)
+        logp_new, grad = value_and_grad(logdensity_fn, q, reduce)
         p = p + 0.5 * step_size * grad
 
     energy0 = -logp0 + kinetic(momentum)

@@ -259,13 +259,31 @@ class CovidUK:
 
     # ---------- rates ----------
 
-    def commute_pressure(self, infectious):
+    def commute_pressure(self, infectious, space=None):
         """``Cstar @ (I/N)`` for all days at once: the block-sparse
-        operator (K2) when the model has one, else a dense matmul."""
+        operator (K2) when the model has one, else a dense matmul.
+
+        With ``space`` (``parallel.sharding.SpaceBand``) ``infectious`` is
+        the rank's band of locations ``[..., M / space, T]`` and the result
+        the whole ``[..., M, T]`` on every rank of the space group, from
+        the gathered ``I/N``: the rows of ``Cstar`` of the band times it,
+        gathered (dense), or K2 launched on the rank's band of block rows
+        and summed over the group (block-sparse; bitwise the whole
+        launch), or the whole operator on every rank when its block rows
+        do not split over the group."""
         d = self.data
-        if d.Cstar_bsr is not None:
-            return d.Cstar_bsr.matmul(infectious / d.N[:, None])
-        return torch.matmul(d.Cstar, infectious / d.N[:, None])
+        if space is None:
+            if d.Cstar_bsr is not None:
+                return d.Cstar_bsr.matmul(infectious / d.N[:, None])
+            return torch.matmul(d.Cstar, infectious / d.N[:, None])
+        x = space.gather(infectious / d.N[space.rows, None], dim=-2)
+        if d.Cstar_bsr is None:
+            return space.gather(torch.matmul(d.Cstar[space.rows], x),
+                                dim=-2)
+        band = space.bsr_band(d.Cstar_bsr)
+        if band is None:
+            return d.Cstar_bsr.matmul(x)
+        return space.sum(band.matmul(x))
 
     def transition_rates(self, params: Parameters, state, commute=None):
         """``[..., M, T, X]`` rates for all days at once."""
@@ -295,13 +313,18 @@ class CovidUK:
         )[..., None, :].expand_as(rate_se)
         return torch.stack([rate_se, rate_ei, rate_ir], dim=-1)
 
-    def reduced_loglik_fn(self, events, state, commute):
+    def reduced_loglik_fn(self, events, state, commute, rows=slice(None)):
         """Chain-binomial log-likelihood for FIXED events, as a closure
         ``params -> [...]`` that touches only the parameter-dependent
         terms: the lgammas and the whole E->I term are constants, and the
         I->R term collapses to two ``[T]`` sums.  Equal in value and
-        gradient to the full :meth:`log_prob` likelihood."""
+        gradient to the full :meth:`log_prob` likelihood.
+
+        ``rows`` (a slice of the locations) gives the partial over a band:
+        ``events``, ``state`` and ``commute`` hold those locations only,
+        and the partials of the bands sum to the whole."""
         d = self.data
+        N, log_area = d.N[rows], d.log_area[rows]
         dtype = events.dtype
         tiny = torch.finfo(dtype).tiny
         nu = torch.tensor(seir.NU, dtype=dtype, device=events.device)
@@ -334,9 +357,10 @@ class CovidUK:
             alpha = _alpha_timeseries(params.alpha_0, params.alpha_t, t_abs)
             e_t = torch.exp(alpha)  # [..., T]
             e_m = torch.exp(
-                _tail(params.beta_area, 1) * d.log_area
-                + _tail(params.sigma_space, 1) * params.spatial_effect
-            ) / d.N  # [..., M]
+                _tail(params.beta_area, 1) * log_area
+                + _tail(params.sigma_space, 1) * params.spatial_effect[
+                    ..., rows]
+            ) / N  # [..., M]
             pressure = infectious + _tail(params.psi, 2) * w_t * commute
             r_se = torch.clamp(
                 e_m[..., :, None] * e_t[..., None, :] * pressure + RATE_EPS,

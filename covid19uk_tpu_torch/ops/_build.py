@@ -97,9 +97,9 @@ def bind_block_sparse(lib):
     """Declares the C interface of ``csrc/block_sparse.cu`` on ``lib``."""
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.bsr_matmul_launch
-    # values, col_idx, slots, order, perm, x, y, then R, K, M, S, T, the
-    # days of a thread block, the stream
-    fn.argtypes = [p] * 7 + [i] * 6 + [p]
+    # values, col_idx, slots, order, perm, x, y, then R, the rows of
+    # order to launch, K, M, S, T, the days of a thread block, the stream
+    fn.argtypes = [p] * 7 + [i] * 7 + [p]
     fn.restype = ctypes.c_int
     shared = lib.bsr_matmul_shared_bytes  # dynamic shared memory a block
     shared.argtypes = [i, i]

@@ -36,10 +36,12 @@ def _round_up(x, m):
 
 def bsr_matmul_reference(values, col_idx, xp):
     """The plain block-ELL product: ``values [R, K, B, B]`` gathered by
-    ``col_idx [R, K]`` times padded ``xp [S, R*B, Tp]`` -> ``[S, R*B, Tp]``."""
+    ``col_idx [R, K]`` times padded ``xp [S, R0*B, Tp]`` -> ``[S, R*B, Tp]``
+    (``R0 = R`` but for a band of block rows, whose column blocks index all
+    ``R0``)."""
     R, K, B, _ = values.shape
     S, _, Tp = xp.shape
-    xb = xp.reshape(S, R, B, Tp)[:, col_idx.long()]  # [S, R, K, B, Tp]
+    xb = xp.reshape(S, -1, B, Tp)[:, col_idx.long()]  # [S, R, K, B, Tp]
     y = torch.einsum("rkij,srkjt->srit", values, xb)
     return y.reshape(S, R * B, Tp)
 
@@ -80,10 +82,14 @@ def tile_days(R, S, T, sms):
 def _kernel_args(values, col_idx, x, perm, slots, order, sms=None):
     """Checks the kernel's inputs and returns (its C arguments before the
     stream, the output ``y``, allocated): ``x [S, M, T]`` float32,
-    ``perm [M]``, ``slots [R]``, ``order [R]`` and ``col_idx`` int32, all
-    contiguous on one device; ``sms`` (the device's SM count when None)
-    sets the day tile."""
+    ``perm [M]``, ``slots [R]``, ``order`` and ``col_idx`` int32, all
+    contiguous on one device; ``order`` lists the block rows to compute,
+    all ``R`` of them or a band (then ``y`` is zeros but for the band's
+    rows).  ``sms`` (the device's SM count when None) sets the day tile,
+    chosen for all ``R`` rows in either case, so that a band's rows are
+    summed as in the whole launch."""
     R, K, B, _ = values.shape
+    rows = order.shape[0]
     if values.dtype != torch.float32 or x.dtype != torch.float32:
         raise ValueError("the block-sparse kernel takes float32 values and x")
     for name, t in (("col_idx", col_idx), ("perm", perm), ("slots", slots),
@@ -92,7 +98,8 @@ def _kernel_args(values, col_idx, x, perm, slots, order, sms=None):
             raise ValueError(f"{name} must be int32")
     if (B != BLOCK or x.dim() != 3 or perm.shape != (x.shape[1],)
             or x.shape[1] > R * B or col_idx.shape != (R, K)
-            or slots.shape != (R,) or order.shape != (R,)):
+            or slots.shape != (R,) or order.dim() != 1
+            or not 1 <= rows <= R):
         raise ValueError(f"bad shapes: values {tuple(values.shape)}, "
                          f"x {tuple(x.shape)}, perm {tuple(perm.shape)}")
     tensors = (values, col_idx, x, perm, slots, order)
@@ -105,17 +112,18 @@ def _kernel_args(values, col_idx, x, perm, slots, order, sms=None):
     S, M, T = x.shape
     if sms is None:
         sms = _sm_count(x.device)
-    y = torch.empty_like(x)
+    y = torch.empty_like(x) if rows == R else torch.zeros_like(x)
     args = (values.data_ptr(), col_idx.data_ptr(), slots.data_ptr(),
             order.data_ptr(), perm.data_ptr(), x.data_ptr(), y.data_ptr(),
-            R, K, M, S, T, tile_days(R, S, T, sms))
+            R, rows, K, M, S, T, tile_days(R, S, T, sms))
     return args, y
 
 
 def _launch(values, col_idx, x, perm, slots, order):
     """The CUDA kernel: ``y [S, M, T]``, row ``perm[r]`` of it the
-    operator's row ``r`` times ``x [S, M, T]`` read through ``perm``; one
-    launch, ``y`` its only allocation."""
+    operator's row ``r`` times ``x [S, M, T]`` read through ``perm``, for
+    the rows of the block rows in ``order``; one launch, ``y`` its only
+    allocation."""
     from covid19uk_tpu_torch.ops import _build
 
     args, y = _kernel_args(values, col_idx, x, perm, slots, order)
@@ -167,6 +175,79 @@ def bsr_matmul(op, x):
 
 
 bsr_matmul.launches = 0
+
+
+def _plain_band(values, col_idx, perm, r0, r1, x):
+    """The plain version of a band launch on ``x [S, n, T]``: block rows
+    ``r0 .. r1`` of the operator (``values[r0:r1]`` and ``col_idx[r0:r1]``,
+    whose column blocks are global) times ``x`` gathered through ``perm``
+    and padded as :func:`_plain` pads it, written to rows ``perm[r0*B :
+    r1*B]`` of a zero ``[S, n, T]``."""
+    R, _, B, _ = values.shape
+    S, n, t = x.shape
+    if perm is not None:
+        x = x[:, perm]
+    xp = x.new_zeros((S, R * B, _round_up(max(t, 1), B)))
+    xp[:, :n, :t] = x
+    yb = bsr_matmul_reference(values[r0:r1], col_idx[r0:r1], xp)
+    rows = min(r1 * B, n) - r0 * B
+    dest = torch.arange(r0 * B, r0 * B + rows, device=x.device)
+    if perm is not None:
+        dest = perm[dest]
+    y = x.new_zeros((S, n, t))
+    y[:, dest] = yb[:, :rows, :t]
+    return y
+
+
+class RowBand:
+    """Block rows ``r0 .. r1`` of a :class:`BlockSparse` operator, such as
+    a rank's band when the block rows are split over ranks (the JAX
+    package shards ``values`` and ``col_idx`` on their block-row axis,
+    ``_make_partitioned_apply``).  ``order`` holds the band's rows, longest
+    first, for the kernel; the operator's other arrays are shared."""
+
+    def __init__(self, op, r0, r1):
+        if not 0 <= r0 < r1 <= op.col_idx.shape[0]:
+            raise ValueError(f"no block rows {r0} .. {r1} in "
+                             f"{op.col_idx.shape[0]}")
+        self.op, self.r0, self.r1 = op, r0, r1
+        band = op.slots[r0:r1]
+        self.order = (self.r0 + torch.argsort(band, descending=True,
+                                              stable=True)).to(torch.int32)
+
+    @property
+    def rows(self):
+        return self.r1 - self.r0
+
+    def matmul(self, x):
+        """The band's rows of ``A @ x`` for ``x [..., M, T]``, zeros
+        elsewhere: summed over the bands, the whole product."""
+        return bsr_band_matmul(self, x)
+
+
+def bsr_band_matmul(band, x):
+    """``band.matmul(x)``: one launch of the kernel on the band's block rows
+    for tensors on a CUDA device (counted in ``bsr_matmul.launches``), the
+    plain version :func:`_plain_band` on the CPU.  Every call is counted in
+    ``bsr_band_matmul.calls``.  No gradient: the driver applies it to the
+    events' infectious counts, which HMC holds fixed."""
+    op = band.op
+    lead, n, t = x.shape[:-2], x.shape[-2], x.shape[-1]
+    x3 = x.reshape((-1, n, t))
+    if x.device.type == "cpu":
+        y = _plain_band(op.values, op.col_idx, op.perm, band.r0, band.r1,
+                        x3)
+    elif x.device.type == "cuda":
+        y = _launch(op.values, op.col_idx, x3.contiguous(), op.perm32,
+                    op.slots, band.order)
+    else:
+        raise ValueError(f"no block-sparse product for device {x.device}")
+    bsr_band_matmul.calls += 1
+    nans.check("bsr_matmul", (y,))
+    return y.reshape(lead + (n, t))
+
+
+bsr_band_matmul.calls = 0
 
 
 class BlockSparse:
@@ -254,6 +335,15 @@ class BlockSparse:
     def matmul(self, x):
         """``A @ x`` for ``x`` of shape ``[..., M, T]``."""
         return bsr_matmul(self, x)
+
+    def row_band(self, r, space):
+        """Rank ``r``'s :class:`RowBand` of ``space`` equal bands of block
+        rows; ``ValueError`` when the block rows do not split evenly."""
+        R = self.col_idx.shape[0]
+        if R % space:
+            raise ValueError(f"{R} block rows do not split over {space} "
+                             "ranks")
+        return RowBand(self, r * R // space, (r + 1) * R // space)
 
     def todense(self):
         """Dense ``[n, n]`` numpy reconstruction (tests, debugging)."""

@@ -13,8 +13,14 @@
 // for r with i*B + r < M; a permuted row at or past M is a zero row of x
 // and writes nothing.  values [R, K, B, B] (B = 128), col_idx [R, K],
 // slots [R] (the slots of row i to visit: 1 + its last slot that holds a
-// nonzero; the slots after it are zero blocks), order [R] (the rows,
-// longest first), perm [M] int32; x and y [S, M, T] float32, unpadded.
+// nonzero; the slots after it are zero blocks), order [rows] (the block
+// rows to compute, longest first: all R of them, or a band of them),
+// perm [M] int32; x and y [S, M, T] float32, unpadded.  A launch on a
+// band of block rows (the space-sharded driver's row band, as the JAX
+// package's _make_partitioned_apply runs _bsr_apply on each device's
+// rows) writes only y's rows perm[i*B + r] of the band's rows i; each of
+// them is summed exactly as in the launch on all R rows when the day tile
+// is the same (the wrapper picks it for all R rows).
 //
 // What bounds it on this card.  At the MSOA shape (R = 55, K = 9, 383 of
 // 495 slots hold a block, M = 7000, T = 120, S = 1) one product needs 1.51
@@ -157,7 +163,7 @@ struct Args {
   const int* perm;
   const float* x;
   float* y;
-  int R, K, M, S, T;
+  int K, M, S, T;
   int day_tiles;
   int vec;  // 16-byte copies of x (T % 4 == 0, x 16-byte aligned)
 };
@@ -362,19 +368,19 @@ int launch(const Args& a, int grid, void* stream) {
 extern "C" int bsr_matmul_launch(const float* values, const int* col_idx,
                                  const int* slots, const int* order,
                                  const int* perm, const float* x, float* y,
-                                 int R, int K, int M, int S, int T,
+                                 int R, int rows, int K, int M, int S, int T,
                                  int tile_days, void* stream) {
-  if (R < 1 || K < 1 || S < 1 || T < 1 || M < 1 ||
+  if (R < 1 || rows < 1 || rows > R || K < 1 || S < 1 || T < 1 || M < 1 ||
       M > static_cast<long long>(R) * kB || tile_days < 16 ||
       tile_days > 64 || tile_days % 16 ||
       reinterpret_cast<std::uintptr_t>(values) % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   const int day_tiles = (T + tile_days - 1) / tile_days;
-  const long long blocks = static_cast<long long>(R) * S * 2 * day_tiles;
+  const long long blocks = static_cast<long long>(rows) * S * 2 * day_tiles;
   if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
   const int vec =
       T % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
-  const Args a{values, col_idx, slots, order, perm, x, y, R, K, M, S, T,
+  const Args a{values, col_idx, slots, order, perm, x, y, K, M, S, T,
                day_tiles, vec};
   const int grid = static_cast<int>(blocks);
   switch (tile_days / 16) {

@@ -4,7 +4,11 @@ Port of ``covid19uk_tpu/parallel/mesh.py`` on ``torch.distributed``: one
 rank drives one device, so a mesh of ``n`` devices is a
 ``DeviceMesh`` over ranks ``0 .. n-1`` of the initialized group
 (``parallel/distributed.py:initialize``).  :func:`mesh_shape` is the
-(chain, space) shape rule alone, with no group.
+(chain, space) shape rule alone, with no group.  A mesh's sub-groups are
+the DeviceMesh's own: ``mesh.get_group("space")`` holds the ranks that
+share one slice of the chains (the space group), ``mesh.get_group("chain")``
+the ranks that hold one band of the locations; :func:`axis` reads a rank's
+place on either axis.
 """
 
 import torch
@@ -46,3 +50,12 @@ def chain_space_mesh(n=None, space=None):
     """2-D mesh (chain, space) of ``n`` ranks, by default all of them;
     ``space`` as :func:`mesh_shape` sets it."""
     return _device_mesh(mesh_shape(n or dist.get_world_size(), space))
+
+
+def axis(mesh, name):
+    """``(size, this rank's index)`` along ``mesh``'s axis ``name``; ``(1,
+    0)`` when the mesh has no such axis (a chain mesh has no ``space``)."""
+    if name not in mesh.mesh_dim_names:
+        return 1, 0
+    return (mesh.shape[mesh.mesh_dim_names.index(name)],
+            mesh.get_local_rank(name))

@@ -63,18 +63,26 @@ def check(name, tensors):
             f"NaN in the output of the {name} kernel (debug_nans)")
 
 
-def checked_step(step):
+def checked_step(step, agree=None):
     """``step(state, tune, generator=None, noise=None)`` (the transition of
     ``gibbs.make_mcmc_step``) with NaN checking: each transition's
     floating-point outputs are checked (one wait for the device), and a
     transition that returns a NaN runs again from the same generator
     state inside :class:`NanCheck`, which raises at the first op that
-    made one.  The draws are those of ``step``."""
+    made one.  The draws are those of ``step``.
+
+    ``agree(flag) -> flag`` makes the ranks that run a transition together
+    (a space group, whose ranks hold different bands of the events) take
+    one decision: a rank whose band holds no NaN reruns with the one whose
+    band does, so that their collectives still pair up."""
 
     def run(state, tune, generator=None, noise=None):
         before = None if generator is None else generator.get_state()
         out = step(state, tune, generator, noise)
-        if not any(_has_nan(t) for t in tree_leaves(out)):
+        found = any(_has_nan(t) for t in tree_leaves(out))
+        if agree is not None:
+            found = agree(found)
+        if not found:
             return out
         if generator is not None:
             generator.set_state(before)

@@ -133,6 +133,42 @@ def test_cuda_block_sparse_matches_plain_version(lead, T, zero_row):
     assert abs(g_err).max() <= 1e-5
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("space", [2, 3])
+def test_cuda_block_sparse_band_matches_plain_version(space):
+    """K2 launched on each of ``space`` bands of block rows (a space-sharded
+    rank's band) against the plain band on the same inputs, within 1e-5
+    of |A| @ |x|: one launch a band, zeros outside the band's rows, and
+    the bands summed bitwise equal to the whole launch."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the CUDA kernel has no CPU mode")
+    from covid19uk_tpu_torch.ops import block_sparse as bs
+
+    M, T = 768, 120  # 6 block rows
+    model = synthetic.build_synthetic_model(M, T, torch.float32, sparse=True,
+                                            radius_frac=0.05, device="cuda")
+    op = model.data.Cstar_bsr
+    x = torch.randn((2, M, T), generator=torch.Generator(
+        device="cuda").manual_seed(2), device="cuda")
+    scale = bs._plain(op.values.abs(), op.col_idx, op.perm, op.inv_perm,
+                      x.abs())
+    total = torch.zeros_like(x)
+    for r in range(space):
+        band = op.row_band(r, space)
+        before = bs.bsr_matmul.launches
+        y = band.matmul(x)
+        torch.cuda.synchronize()
+        assert bs.bsr_matmul.launches == before + 1
+        want = bs._plain_band(op.values, op.col_idx, op.perm, band.r0,
+                              band.r1, x)
+        err = float(((y - want).abs() / (scale + 1e-30)).max())
+        assert err <= 1e-5, err
+        outside = want.abs().sum((0, 2)) == 0
+        assert bool((y[:, outside] == 0).all())
+        total += y
+    assert torch.equal(total, op.matmul(x))
+
+
 def _posterior_samples(S, M, T):
     """A synthetic model and S posterior-like samples (jittered scalar
     parameters, events simulated from each), as the numpy dict the verbs

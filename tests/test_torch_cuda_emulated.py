@@ -289,6 +289,9 @@ BSR_CASES = {
     # no permutation, and x off 16-byte alignment with T % 4 == 0
     "identity_misaligned": (300, 32, 2, 7, dict(identity=True,
                                                 misaligned=True)),
+    # a launch on block rows 1-2 of the three (a space-sharded rank's
+    # band), against the CPU band; the day tile chosen for all three rows
+    "band": (300, 40, 2, 8, dict(band=(1, 3))),
 }
 
 
@@ -314,11 +317,13 @@ def _bsr_child(so_path, case):
         x = buf[1:1 + S * M * T].view(S, M, T).copy_(x)
     x0 = x.clone()
     lib = _build.bind_block_sparse(ctypes.CDLL(so_path))
+    band = bs.RowBand(op, *opt["band"]) if "band" in opt else None
     args, y = bs._kernel_args(op.values, op.col_idx, x, op.perm32, op.slots,
-                              op.order, sms=opt.get("sms", 4))
+                              op.order if band is None else band.order,
+                              sms=opt.get("sms", 4))
     err = lib.bsr_matmul_launch(*args, None)
     assert err == 0
-    want = op.matmul(x)
+    want = op.matmul(x) if band is None else band.matmul(x)
     scale = bs._plain(op.values.abs(), op.col_idx, op.perm, op.inv_perm,
                       x.abs())
     rows = None
@@ -332,6 +337,11 @@ def _bsr_child(so_path, case):
         slots=op.slots.tolist(),
         order=op.order.tolist(),
         tile_days=args[-1],
+        whole_tile_days=bs.tile_days(op.col_idx.shape[0], S, T,
+                                     opt.get("sms", 4)),
+        band_rows=args[8],
+        zeros_outside=None if band is None else bool(
+            (y[:, want.abs().sum((0, 2)) == 0] == 0).all()),
         vec=T % 4 == 0 and x.data_ptr() % 16 == 0,
         zero_rows=None if rows is None else bool((y[:, rows] == 0).all()),
     )))
@@ -353,3 +363,6 @@ def test_emulated_block_sparse_matches_plain_version(emulated, case):
         assert r["slots"][opt["zero_row"]] == 0 and r["zero_rows"], r
     if case in ("odd_t", "identity_misaligned"):
         assert not r["vec"], r
+    if "band" in opt:
+        assert r["band_rows"] == 2 and r["zeros_outside"], r
+        assert r["tile_days"] == r["whole_tile_days"], r

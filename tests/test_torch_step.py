@@ -266,8 +266,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_chip_smoke_rehearsal_on_cpu():
     """The chip smoke script's CPU rehearsal runs the slices, the driver
-    phases, the posterior verbs and the two-rank phase at a tiny size and,
-    having no card, exits non-zero without a result line."""
+    phases, the posterior verbs and the two-rank phases at a tiny size
+    and, having no card, exits non-zero without a result line."""
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse"],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
@@ -284,5 +284,11 @@ def test_chip_smoke_rehearsal_on_cpu():
     for line in ("phase 10a dry run over 2 ranks", "phase 10b sharded",
                  "phase 10c rank 0 on cpu", "phase 10c rank 1 on cpu",
                  "phase 10b-c on the CPU", "phase 10d debug_nans"):
+        assert line in out.stdout, line
+    # phase 11, the space axis, on two CPU ranks
+    for line in ("phase 11a sharded transition over a 1 x 2",
+                 "phase 11b driver over a 1 x 2", "phase 11c MSOA M=256",
+                 "not a multiple of 2): the operator stays whole",
+                 "phase 11 on the CPU"):
         assert line in out.stdout, line
     assert '"ok"' not in out.stdout

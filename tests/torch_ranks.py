@@ -6,7 +6,10 @@ ranks of ``python tests/torch_ranks.py <scenario> <dir> <rank> <world>
 scenario and writes what it found into ``<dir>`` for the calling test to
 check.  ``parallel`` runs the sharded step on a replayed ``StepNoise``,
 pooled adaptation and the gate statistics over gathered chains, and the
-meshes; ``driver`` runs ``mcmc`` over the ranks on the NI data.
+meshes; ``driver`` runs ``mcmc`` over the ranks on the NI data;
+``space`` runs the sharded step and ``mcmc`` with the location axis
+sharded over the two ranks (``space_devices=2``) on the data files that
+the calling test wrote into ``<dir>``.
 """
 
 import json
@@ -26,6 +29,16 @@ STEP_M, STEP_T, STEP_C = 10, 16, 8
 STATS_C, STATS_P, GATE_N = 8, 7, 24
 
 
+def _step_config():
+    from covid19uk_tpu_torch.inference.gibbs import EventKernelConfig
+
+    return EventKernelConfig(dmax=5, mmax=2, nmax=6, occult_nmax=4,
+                             num_event_time_updates=2,
+                             t_range=(STEP_T - 6, STEP_T),
+                             num_pair_updates=0, fused_sweep="always",
+                             occult_guided=True)
+
+
 def spawn(scenario, tmp, world=2, device="cpu", timeout=120):
     """Runs ``scenario`` on ``world`` ranks; returns their outputs and
     raises with them if a rank fails."""
@@ -41,7 +54,7 @@ def step_case(device="cpu", dtype=torch.float64):
     (drawn once from numpy) and transition (fused sweep, no pair moves):
     the same on every rank and in the calling test."""
     from covid19uk_tpu_torch.inference.gibbs import (
-        ChainState, EventKernelConfig, HMCTunables, StepNoise,
+        ChainState, HMCTunables, StepNoise,
         make_mcmc_step, resolve_event_config, sweep_config)
     from covid19uk_tpu_torch.ops import fused_sweep as fs
     from covid19uk_tpu_torch.utils.synthetic import (
@@ -60,10 +73,7 @@ def step_case(device="cpu", dtype=torch.float64):
                             ((0, 0), (0, P - 6))))
     state = ChainState(u=u, events=single.events.expand(C, -1, -1, -1)
                        .contiguous())
-    cfg = EventKernelConfig(dmax=5, mmax=2, nmax=6, occult_nmax=4,
-                            num_event_time_updates=2, t_range=(T - 6, T),
-                            num_pair_updates=0, fused_sweep="always",
-                            occult_guided=True)
+    cfg = _step_config()
     W = fs.Offsets(M, cfg.mmax).width
     scfg = sweep_config(resolve_event_config(cfg, M))
     U = scfg.num_updates
@@ -235,7 +245,8 @@ def _driver(tmp, rank, device):
 
     # (e) options that a run over several ranks refuses
     refused = {}
-    for name, cfg in (("space", driver_config(space_devices=2)),
+    for name, cfg in (("space", driver_config(space_devices=2,
+                                              gamma_gibbs=True)),
                       ("chains", driver_config(num_chains=3)),
                       ("no_mesh", driver_config(use_mesh=False))):
         try:
@@ -247,6 +258,84 @@ def _driver(tmp, rank, device):
         json.dump(refused, f)
 
 
+def space_config(M, **kw):
+    """The space-sharded driver runs' configuration (the JAX package's
+    ``tests/test_mesh_driver.py`` cases): 4 chains, float64."""
+    base = dict(
+        dmax=4, nmax=8, m=2, occult_nmax=4, num_event_time_updates=2,
+        num_bursts=1, num_burst_samples=5, thin=1, dtype="float64", seed=1,
+        num_chains=4,
+        warmup=dict(first_window=6 if M < 128 else 4, slow_window=4,
+                    num_slow_windows=1, last_window=4))
+    base.update(kw)
+    return base
+
+
+def record_u(driver, sums):
+    """Wraps the MCMC driver's window and burst runners so that each call
+    appends the checksum of the chains' u it ends with to ``sums``."""
+    make_window, make_fixed = driver.make_window_runner, \
+        driver.make_fixed_runner
+
+    def wrap(make):
+        def runner(*a, **k):
+            run = make(*a, **k)
+
+            def wrapped(*args):
+                out = run(*args)
+                sums.append(float(out[0].u.sum()).hex())
+                return out
+
+            return wrapped
+
+        return runner
+
+    driver.make_window_runner = wrap(make_window)
+    driver.make_fixed_runner = wrap(make_fixed)
+    return make_window, make_fixed
+
+
+def _space(tmp, rank, device):
+    from covid19uk_tpu_torch.inference import driver
+    from covid19uk_tpu_torch.inference.gibbs import make_mcmc_step
+    from covid19uk_tpu_torch.ops import block_sparse
+    from covid19uk_tpu_torch.parallel.mesh import chain_space_mesh
+    from covid19uk_tpu_torch.parallel.sharding import (
+        SpaceBand, gather_space, make_sharded_step, shard_chain_state,
+        shard_tunables)
+
+    # the step: 8 chains, their locations over the two ranks
+    mesh = chain_space_mesh(space=2)
+    model, state, tune, noise, _ = step_case(device)
+    band = SpaceBand(mesh, STEP_M)
+    step = make_sharded_step(make_mcmc_step(model, 3, _step_config(), band),
+                             mesh, shard_space=True)
+    new, trace = step(shard_chain_state(state, mesh, True),
+                      shard_tunables(tune, mesh), None, noise)
+    events = gather_space(new.events, mesh, 1)
+    out = {"u": new.u.numpy(), "events": events.numpy(),
+           "band": new.events.numpy(),
+           "accepted": trace.hmc.is_accepted.numpy()}
+
+    # the driver, dense (with debug_nans: the ranks agree on each check)
+    # and block-sparse
+    for name, kw in (("dense", dict(debug_nans=True)),
+                     ("sparse", dict(sparse="always"))):
+        sums = []
+        originals = record_u(driver, sums)
+        calls = block_sparse.bsr_band_matmul.calls
+        M = 4 if name == "dense" else 256
+        driver.mcmc(os.path.join(tmp, f"data{M}.h5"),
+                    os.path.join(tmp, f"{name}.h5"), space_config(
+                        M, use_mesh=True, space_devices=2, **kw),
+                    device=device)
+        driver.make_window_runner, driver.make_fixed_runner = originals
+        out[f"{name}_sums"] = np.array(sums)
+        out[f"{name}_band_calls"] = (block_sparse.bsr_band_matmul.calls
+                                     - calls)
+    np.savez(os.path.join(tmp, f"space_{rank}.npz"), **out)
+
+
 def main(argv):
     scenario, tmp, rank, world, device = argv
     rank, world = int(rank), int(world)
@@ -255,8 +344,8 @@ def main(argv):
 
     distributed.initialize(f"file://{tmp}/store", world, rank)
     try:
-        {"parallel": _parallel, "driver": _driver}[scenario](
-            tmp, rank, device)
+        {"parallel": _parallel, "driver": _driver, "space": _space}[
+            scenario](tmp, rank, device)
     finally:
         torch.distributed.destroy_process_group()
 

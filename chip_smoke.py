@@ -2,7 +2,7 @@
 """Runs the PyTorch/CUDA port (covid19uk_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # on a machine with a card
-    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-11; exits 3
+    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-12; exits 3
 
 Phases, one short line each:
   0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
@@ -117,11 +117,32 @@ Phases, one short line each:
      process; and
      2 transitions at M=7000, whose 55 block rows do not split: the whole
      operator on both ranks (whole launches, no band product).
+ 12. the off-default event kernels over the space axis, run by phase
+     11's two ranks (same spawn, same space group): (a) the UK
+     transition of the 64 chains with phase 9's options (unfused sweep,
+     compensated move and pair move, gamma refresh) on 11a's inputs and
+     HMC draws, the sweep's generator seeded alike on both ranks: both
+     ranks' u and gathered events bitwise equal, no K1 launch; against
+     one process on the same draws, the chains whose events are equal
+     (counted and printed, not held) have u[:, 3:5] within rtol 1e-5
+     with 11a's float32 atol, and one process's transition run twice is
+     bitwise alike; the transition's ms a rank beside one process's, and
+     the unfused sweep alone on both ranks at once beside one process
+     alone (host clock, the second of two runs); (b) run_mcmc with
+     use_mesh, space_devices=2 and the options on phase 9a's plan and
+     chains, the warmup stored too: every window's and burst's u bitwise
+     equal on both ranks, rank 0's store (30, 64, 380, 120, 3), the
+     refresh's, compensated and pair acceptances in (0, 1], no K1
+     launch; each rank's ms/transition beside phase 9a's and its seconds
+     in the driver's gathers; (c) the MSOA transition at M=7168 with phase 9b's
+     options, one chain, 2 untimed + 3 timed: one K2 launch a transition
+     on each rank over its 28 block rows, both ranks bitwise equal,
+     ms/transition beside phase 9b's.
 Then the kernels' JSON line (launches: K1 phase 6's, phase 10c's and
-phase 11a-b's on every rank, K2 phases 7, 9b and 11c's on both ranks;
-phase 8 launches neither kernel, phase 9a must not launch K1) and, last,
-the result line.  Any failure exits non-zero, as does a run without a
-CUDA device.
+phase 11a-b's on every rank, K2 phases 7, 9b, 11c and 12c's on both
+ranks; phase 8 launches neither kernel, phases 9a and 12a-b must not
+launch K1) and, last, the result line.  Any failure exits non-zero, as
+does a run without a CUDA device.
 """
 
 import faulthandler
@@ -749,7 +770,7 @@ def phase_msoa(torch, model, state, gen, timed, card=""):
 
 def rehearse_msoa(torch):
     """The MSOA path and its driver on the CPU at a tiny size (operators
-    forced)."""
+    forced); returns phase 9b's ms/transition."""
     from covid19uk_tpu_torch.inference.gibbs import ChainState
     from covid19uk_tpu_torch.utils.synthetic import (
         build_synthetic_model, initial_chain_state)
@@ -763,7 +784,7 @@ def rehearse_msoa(torch):
     phase_msoa(torch, model, state, gen, timed=2)
     phase_driver(torch, 7, model, state, msoa_config(model.num_steps),
                  MSOA_DRIVER, "bsr_matmul")
-    phase_9b(torch, model, state, gen, timed=2)
+    return phase_9b(torch, model, state, gen, timed=2)[1]
 
 
 class MemoryPosterior:
@@ -1126,6 +1147,15 @@ def off_default_config(T, **kw):
     return uk_driver_config(T)._replace(**base)
 
 
+def msoa_off_default_config(T):
+    """Phase 9b's (and 12c's) event kernels: phase 5's with the
+    compensated E->I move, the compensated pair move and the gamma
+    refresh."""
+    return msoa_config(T)._replace(compensate_gamma0=True,
+                                   pair_compensate_gamma0=True,
+                                   gamma_gibbs=True)
+
+
 class CompensatedRecord:
     """Wraps the transition's two compensated kernels while it is entered:
     every call keeps its gamma0 in and out, its accept flags, whether it
@@ -1325,14 +1355,12 @@ def phase_9b(torch, model, state, gen, timed, card=""):
     """Phase 9b: the off-default kernels at MSOA width (phase 5's model
     and chain, threaded commute): ``timed`` transitions after 2 untimed,
     one K2 launch each, phase 5's invariants, and on the card its
-    threaded-commute check.  Returns K2's launches."""
+    threaded-commute check.  Returns (K2's launches, ms/transition)."""
     from covid19uk_tpu_torch.inference.gibbs import HMCTunables, make_mcmc_step
 
     dev = state.u.device
     t0 = time.perf_counter()
-    ecfg = msoa_config(model.num_steps)._replace(
-        compensate_gamma0=True, pair_compensate_gamma0=True,
-        gamma_gibbs=True)
+    ecfg = msoa_off_default_config(model.num_steps)
     step = make_mcmc_step(model, 16, ecfg)
     tune = HMCTunables(
         step_size=torch.tensor(0.01, device=dev),
@@ -1352,7 +1380,7 @@ def phase_9b(torch, model, state, gen, timed, card=""):
     if dev.type == "cuda":
         check_threaded_sweep(torch, model, state, tune, gen, ecfg)
     say(f"phase 9b done ({time.perf_counter() - t0:.1f} s)")
-    return launches["bsr_matmul"]
+    return launches["bsr_matmul"], ms
 
 
 def phase_9c(torch, dev, M, T, C):
@@ -1829,18 +1857,59 @@ SPACE_FALLBACK = 2  # 11c's transitions at M = 7000 (55 block rows)
 # 11b's plan in a rehearsal: every window and a burst, 12 transitions
 REHEARSE_DRIVER = (dict(first_window=4, slow_window=2, num_slow_windows=1,
                         last_window=2), 1, 4, 2)
+OFF_SPACE_SEED = 12  # 12a's sweep generators: chain slice k seeded 12 + k
+# the off-default kernels' results whose acceptance 12b holds in (0, 1]
+OFF_RESULTS = ("gamma", "move/E->I_compensated", "move/S->E+E->I_pair")
+
+
+def digest(*tensors):
+    """The sha256 of the tensors' bytes in order: equal digests are
+    bitwise equal tensors."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def record_u_digests(driver, digests):
+    """Wraps the MCMC driver's window and burst runners so that each call
+    appends the :func:`digest` of the chains' u it ends with to
+    ``digests``; returns the originals."""
+    originals = driver.make_window_runner, driver.make_fixed_runner
+
+    def wrap(make):
+        def runner(*a, **k):
+            run = make(*a, **k)
+
+            def wrapped(*args):
+                out = run(*args)
+                digests.append(digest(out[0].u))
+                return out
+
+            return wrapped
+
+        return runner
+
+    driver.make_window_runner, driver.make_fixed_runner = map(wrap,
+                                                              originals)
+    return originals
 
 
 def space_worker(argv):
-    """One rank of phase 11: ``--space-worker <dir> <rank> <device>``
-    (sizes in ``<dir>/spec.json``).  11a: the space-sharded transition on
-    the parent's StepNoise, K1's launches, the band's commute against the
-    whole product; 11b: ``run_mcmc`` with ``use_mesh`` and
-    ``space_devices`` on phase 6's plan; 11c: the MSOA transition with K2
-    on the rank's band of block rows (launches, band rows, the band
-    launch against its plain version, the summed bands against the whole
-    launch), and the replicated operator at M = 7000.  Writes
-    ``<dir>/space<r>.pkl``."""
+    """One rank of phases 11 and 12: ``--space-worker <dir> <rank>
+    <device>`` (sizes in ``<dir>/spec.json``).  11a: the space-sharded
+    transition on the parent's StepNoise, K1's launches, the band's
+    commute against the whole product; 12a: the same transition with the
+    off-default kernels, the sweep's generator seeded alike; 11b:
+    ``run_mcmc`` with ``use_mesh`` and ``space_devices`` on phase 6's
+    plan; 12b: the same with the off-default kernels on phase 9a's plan,
+    each window's u recorded; 11c: the MSOA transition with K2 on the
+    rank's band of block rows (launches, band rows, the band launch
+    against its plain version, the summed bands against the whole
+    launch), 12c: the same with phase 9b's options, and 11c's replicated
+    operator at M = 7000.  Writes ``<dir>/space<r>.pkl``."""
     import pickle
 
     tmp, rank, device = argv[0], int(argv[1]), argv[2]
@@ -1911,7 +1980,37 @@ def space_worker(argv):
                               to_lead=True)
         report["step"] = None if not lead else gather_chains(
             (new.u.cpu().numpy(), events), mesh, dst=0)
-        del full, noise, mine, new, cm, got, whole, inp
+
+        # 12a: the transition with the off-default kernels on the same
+        # inputs and HMC draws, one sweep generator a chain slice, seeded
+        # alike on its ranks
+        p12 = report["p12"] = {"chain_rank": chain_rank}
+        ostep = make_sharded_step(
+            make_mcmc_step(model, 16, off_default_config(Tt), band), mesh,
+            shard_space=True)
+        ogen = torch.Generator(device=dev)
+        reset_launches()
+        for _ in range(2):  # the same transition twice: the second timed
+            ogen.manual_seed(OFF_SPACE_SEED + chain_rank)
+            sync()
+            t0 = time.perf_counter()
+            new, tr = ostep(mine, shard_tunables(tune, mesh), ogen,
+                            noise._replace(tbl=None, ttbl=None))
+            sync()
+        p12["a_ms"] = (time.perf_counter() - t0) * 1e3
+        p12["a_k1"] = read_launches()["fused_sweep"]
+        # the sweep alone (no collective) on the whole chains, the ranks
+        # of the card starting together
+        torch.distributed.barrier()
+        p12["a_sweep"] = sweep_breakdown(torch, model, state,
+                                         off_default_config(Tt), ogen)
+        events = band.gather(new.events, 1)
+        p12["a_digest"] = digest(new.u, events)
+        p12["a_acc"] = {f: float(getattr(tr, f).is_accepted.float().mean())
+                        for f in ("hmc", "comp_ei", "pair", "gamma")}
+        p12["a_step"] = None if not lead else gather_chains(
+            (new.u.cpu().numpy(), events.cpu().numpy()), mesh, dst=0)
+        del full, noise, mine, new, cm, got, whole, inp, events, tr
 
         # 11b: the driver with the location axis sharded, phase 6's plan
         warmup, bursts, draws, thin = spec["plan"]
@@ -1937,6 +2036,61 @@ def space_worker(argv):
                     store["samples/seir"])).all())
             with open(log_file) as f:
                 report["log"] = [json.loads(line) for line in f]
+        del store
+
+        # 12b: the driver with the off-default kernels on phase 9a's plan,
+        # the warmup draws stored too (the pair moves run in warmup)
+        warmup, bursts, draws, thin = spec["off_plan"]
+        log_file = os.path.join(tmp, "off_log.jsonl") if rank == 0 else None
+        cfg = dict(num_chains=Cc, num_bursts=bursts, num_burst_samples=draws,
+                   thin=thin, store_warmup=True, warmup=warmup,
+                   autotune_acceptance=True, pooled_adaptation=True,
+                   use_mesh=True, space_devices=space, log_file=log_file)
+        store = MemoryPosterior() if rank == 0 else None
+        digests = []
+        originals = record_u_digests(driver, digests)
+        # the seconds the driver spends in its gathers through the host
+        gathers = {"gather_space": 0.0, "gather_chains": 0.0}
+        saved = {k: getattr(driver, k) for k in gathers}
+
+        def clocked(name):
+            def wrapped(*a, **k):
+                t = time.perf_counter()
+                try:
+                    return saved[name](*a, **k)
+                finally:
+                    gathers[name] += time.perf_counter() - t
+
+            return wrapped
+
+        for k in gathers:
+            setattr(driver, k, clocked(k))
+        sync()
+        reset_launches()
+        t0 = time.perf_counter()
+        driver.run_mcmc(model, state, off_default_config(Tt), cfg, store,
+                        num_chains=Cc, seed=0, device=dev)
+        sync()
+        p12["b_wall_s"] = time.perf_counter() - t0
+        driver.make_window_runner, driver.make_fixed_runner = originals
+        for k in gathers:
+            setattr(driver, k, saved[k])
+        p12["b_gathers"] = gathers
+        p12["b_k1"] = read_launches()["fused_sweep"]
+        p12["b_digests"] = digests
+        if rank == 0:
+            p12["b_store"] = {k: v.shape for k, v in store.data.items()}
+            p12["b_acc"] = {k: float(store[f"results/{k}/is_accepted"]
+                                     .mean()) for k in OFF_RESULTS}
+            p12["b_ok"] = bool(
+                all(np.isfinite(store[k]).all() for k in (
+                    "samples/gamma0", "samples/gamma1",
+                    "results/hmc/target_log_prob"))
+                and (store["samples/seir"] >= 0).all()
+                and (store["samples/seir"] == np.round(
+                    store["samples/seir"])).all())
+            with open(log_file) as f:
+                p12["b_log"] = [json.loads(line) for line in f]
         del model, state, store
 
         # 11c: the MSOA transition, K2 on the rank's band of block rows;
@@ -1990,6 +2144,34 @@ def space_worker(argv):
                 out["bitwise"] = bool(torch.equal(mband.sum(y.clone()),
                                                   op.matmul(x)))
             report["msoa"][Mx] = out
+            if Mx == spec["msoa_M"]:
+                # 12c: phase 9b's options on the same band, from the same
+                # start
+                ostep = make_sharded_step(make_mcmc_step(
+                    msoa, 16, msoa_off_default_config(spec["msoa_T"]),
+                    mband), mesh, shard_space=True)
+                gen.manual_seed(driver.rank_seed(0, chain_rank, slices))
+                st = shard_chain_state(mstate, mesh, shard_space=True)
+                for _ in range(N_UNTIMED):
+                    st, _ = ostep(st, mtune, gen)
+                sync()
+                calls = bs.bsr_band_matmul.calls
+                reset_launches()
+                t0 = time.perf_counter()
+                for _ in range(timed_n):
+                    st, tr = ostep(st, mtune, gen)
+                sync()
+                p12["c"] = {
+                    "ms": (time.perf_counter() - t0) / timed_n * 1e3,
+                    "launches": read_launches()["bsr_matmul"],
+                    "band_calls": bs.bsr_band_matmul.calls - calls,
+                    "rows": out["rows"], "R": out["R"], "timed": timed_n,
+                    "finite": bool(torch.isfinite(
+                        tr.hmc.target_log_prob).all()),
+                    "digest": digest(st.u, mband.gather(st.events, 1)),
+                    "acc": {f: float(getattr(tr, f).is_accepted.float()
+                                     .mean())
+                            for f in ("hmc", "comp_ei", "pair", "gamma")}}
             del msoa, one, mstate, st, op, rows
         with open(os.path.join(tmp, f"space{rank}.pkl"), "wb") as f:
             pickle.dump(report, f)
@@ -2048,7 +2230,8 @@ def one_process_msoa(torch, dev, M, T, C, n, sparse, space):
 
 def phase_11(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS,
              space=SPACE, msoa_M=MSOA_SPACE_M, fallback_M=MSOA_M,
-             msoa_T=MSOA_T, msoa_timed=SPACE_TIMED, sparse="auto"):
+             msoa_T=MSOA_T, msoa_timed=SPACE_TIMED, sparse="auto",
+             off_plan=OFF_DEFAULT_DRIVER, phase9a_ms=None, phase9b_ms=None):
     """Phase 11: ``ranks`` ranks on ``dev`` as a (chain, space) mesh of
     ``space`` ranks a space group (on one card all on ``cuda:0`` over
     gloo, on as many cards as ranks one each over NCCL).  11a: the
@@ -2066,10 +2249,12 @@ def phase_11(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS,
     the band launch within 1e-5 of its plain version (of ``|A| @ |x|``),
     the bands summed over the group bitwise the whole launch, each rank's
     ms/transition beside one process's; and at ``fallback_M``, whose
-    block rows do not split, the whole operator on every rank.  Returns
-    (K1 launches of 11a and 11b, K2 launches of 11c, on all ranks; 11b's
-    bursts' ms per transition; 11c's ms per transition of each rank and
-    of one process)."""
+    block rows do not split, the whole operator on every rank.  The same
+    ranks then run phase 12 (:func:`phase_12`), the off-default kernels
+    over the space axis, on ``off_plan``.  Returns (K1 launches of 11a
+    and 11b, K2 launches of 11c and 12c, on all ranks; 11b's bursts' ms
+    per transition; 11c's ms per transition of each rank and of one
+    process)."""
     import pickle
 
     from covid19uk_tpu_torch.inference.gibbs import (
@@ -2113,14 +2298,42 @@ def phase_11(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS,
             noise._replace(z=noise.z.double(),
                            u_accept=noise.u_accept.double()))
         f32_err = float((want.u.double() - want64.u).abs().max())
-        del model, state, want, commute, noise, model64, want64
+        # 12a's one-process transition with the off-default kernels, in
+        # batches of a chain slice's chains, each with its slice's seed
+        # (twice: the second timed, and bitwise the first), and its sweep
+        # alone on the whole chains
+        ostep = make_mcmc_step(model, 16, off_default_config(T))
+        per = C // slices
+        sync = torch.cuda.synchronize if on_card else (lambda: None)
+        runs = []
+        for _ in range(2):
+            sync()
+            t1 = time.perf_counter()
+            off = [ostep(*[type(x)(*[None if v is None else v[k:k + per]
+                                     for v in x])
+                           for x in (state, tune)],
+                         torch.Generator(device=dev).manual_seed(
+                             OFF_SPACE_SEED + k // per),
+                         StepNoise(noise.z[k:k + per],
+                                   noise.u_accept[k:k + per]))[0]
+                   for k in range(0, C, per)]
+            sync()
+            runs.append((torch.cat([x.u for x in off]).cpu().numpy(),
+                         torch.cat([x.events for x in off]).cpu().numpy()))
+        off_one = dict(ms=(time.perf_counter() - t1) * 1e3,
+                       repeat=all(np.array_equal(a, b)
+                                  for a, b in zip(*runs)),
+                       sweep=sweep_breakdown(torch, model, state,
+                                             off_default_config(T), gen))
+        off_u, off_ev = runs[1]
+        del model, state, want, commute, noise, model64, want64, off, runs
         one_ms, band_ms, whole_ms, bound_ms = one_process_msoa(
             torch, dev, msoa_M, msoa_T, slices, msoa_timed, sparse, space)
         with open(os.path.join(tmp, "spec.json"), "w") as f:
             json.dump(dict(M=M, T=T, C=C, plan=plan, ranks=ranks,
                            space=space, msoa_M=msoa_M, fallback_M=fallback_M,
                            msoa_T=msoa_T, msoa_timed=msoa_timed,
-                           sparse=sparse), f)
+                           sparse=sparse, off_plan=off_plan), f)
         t1 = time.perf_counter()
         spawn_ranks(tmp, dev.type, ranks, "--space-worker", "phase 11")
         wall = time.perf_counter() - t1
@@ -2262,8 +2475,163 @@ def phase_11(torch, dev, M, T, C, plan, phase6_ms, card="", ranks=RANKS,
         raise AssertionError("phase 11: " + "; ".join(problems))
     say(f"phase 11 on {card or 'the CPU'}: {wall:.1f} s for the ranks "
         f"({time.perf_counter() - t0:.1f} s)")
+    k2 += phase_12(reports, (off_u, off_ev, off_one), f32_err, M, T, C,
+                   off_plan, mesh, on_card, phase9a_ms, phase9b_ms, card)
     k1_all = sum(launches) + sum(k1)
     return k1_all, k2, burst_ms, msoa_ms
+
+
+def phase_12(reports, one, f32_err, M, T, C, plan, mesh, on_card,
+             phase9a_ms, phase9b_ms, card=""):
+    """Phase 12: the off-default event kernels (the compensated E->I
+    move, the compensated pair move, the gamma refresh) over the space
+    axis, from the reports of phase 11's ranks.  12a: the UK transition
+    on 11a's inputs and HMC draws: every rank of a space group ends with
+    the same u and gathered events (bitwise), no K1 launch; against the
+    one-process transition ``one = (u, events, timing)`` (in batches of a
+    chain slice, the same seeds; run twice, bitwise alike) the chains
+    whose events are equal have u[:, 3:5] within rtol 1e-5 with 11a's
+    float32 atol ``f32_err`` (the others counted, not held); the
+    transition's ms on each rank and in one process, and the unfused
+    sweep alone in one process and on every rank at once.  12b:
+    ``run_mcmc`` on ``plan``: every window's and burst's u bitwise equal
+    on the ranks of a group, rank 0's store of every chain and location,
+    the refresh's, compensated and pair acceptances in (0, 1], finite
+    gamma and logp, no K1 launch; each rank's ms/transition beside phase
+    9a's and its seconds in the driver's gathers.  12c: the MSOA transition
+    with phase 9b's options: one K2 band launch a transition on each rank
+    over its share of the block rows, the group's ranks bitwise equal;
+    ms/transition beside phase 9b's.  Returns 12c's K2 launches on all
+    ranks."""
+    from covid19uk_tpu_torch.inference.warmup import WarmupSchedule
+
+    problems = []
+    ranks = len(reports)
+    p12 = [r["p12"] for r in reports]
+    groups = {}
+    for p in p12:
+        groups.setdefault(p["chain_rank"], []).append(p)
+
+    def agree(key):
+        """The groups whose ranks' ``key`` differ."""
+        return [c for c, g in groups.items()
+                if any(p[key] != g[0][key] for p in g)]
+
+    # 12a
+    off_u, off_ev, off_one = one
+    got_u, got_ev = p12[0]["a_step"]
+    same = ~(got_ev != off_ev).reshape(C, -1).any(1)
+    g_got, g_want = got_u[same, 3:5], off_u[same, 3:5]
+    bad = np.argwhere(~np.isclose(g_got, g_want, rtol=1e-5, atol=f32_err))
+    if agree("a_digest"):
+        problems.append(f"12a: the ranks of chain slices {agree('a_digest')}"
+                        " differ in u or events")
+    if any(p["a_k1"] for p in p12):
+        problems.append(f"12a: K1 launches {[p['a_k1'] for p in p12]}")
+    if len(bad):
+        problems.append(f"12a: gamma of {len(bad)} entries of chains with "
+                        f"one process's events off by more than rtol 1e-5 "
+                        f"(atol {f32_err!r})")
+    if not off_one["repeat"]:
+        problems.append("12a: one process's transition differs from itself")
+    gap = (float(np.abs(g_got - g_want).max()) if same.any()
+           else float("nan"))
+    say(f"phase 12a off-default transition over a {mesh} mesh of {C} "
+        f"chains (M={M}, T={T}; unfused sweep, compensated move and pair "
+        f"move, gamma refresh) on 11a's inputs and HMC draws: u and "
+        f"gathered events bitwise equal on the ranks of every space group:"
+        f" {not agree('a_digest')}; events equal to one process's in "
+        f"{int(same.sum())} of {C} chains, their u[:, 3:5] largest "
+        f"absolute difference {gap!r} (atol {f32_err!r}); K1 launches per "
+        f"rank {[p['a_k1'] for p in p12]}; acceptance on rank 0 "
+        f"{json.dumps(p12[0]['a_acc'])}; one process's transition twice "
+        f"bitwise alike: {off_one['repeat']}")
+    split = {k: [round(p["a_sweep"][k], 1) for p in p12]
+             for k in off_one["sweep"]}
+    alone = {k: round(v, 1) for k, v in off_one["sweep"].items()}
+    say(f"phase 12a time (host clock, the second of two runs): the "
+        f"transition {[round(p['a_ms'], 1) for p in p12]} ms per rank "
+        f"against {off_one['ms']:.1f} in one process; the unfused sweep "
+        f"alone on all {C} chains, every rank at once (no collective), "
+        f"with the plain kernels {split['plain']}, with the compensated "
+        f"move {split['burst']}, with the compensated pair move too "
+        f"{split['warmup']}, the refresh {split['refresh']} ms, against one "
+        f"process alone {json.dumps(alone)}")
+
+    # 12b
+    warmup, bursts, draws, thin = plan
+    transitions = WarmupSchedule(**warmup).total + bursts * draws
+    stored = WarmupSchedule(**warmup).total + bursts * draws // thin
+    windows = 2 + warmup["num_slow_windows"] + bursts
+    if agree("b_digests") or len(p12[0]["b_digests"]) != windows:
+        problems.append(f"12b: window u differ on the ranks of chain slices "
+                        f"{agree('b_digests')} ({len(p12[0]['b_digests'])} "
+                        f"of {windows} recorded)")
+    if any(p["b_k1"] for p in p12):
+        problems.append(f"12b: K1 launches {[p['b_k1'] for p in p12]}")
+    shape = p12[0]["b_store"]["samples/seir"]
+    if tuple(shape) != (stored, C, M, T, 3) or not p12[0]["b_ok"]:
+        problems.append(f"12b: rank 0's store {shape}, finite and integer:"
+                        f" {p12[0]['b_ok']}")
+    acc = p12[0]["b_acc"]
+    if not all(0.0 < acc[k] <= 1.0 for k in OFF_RESULTS):
+        problems.append(f"12b: acceptances {acc}")
+    log = p12[0]["b_log"]
+    for e in log:
+        if e["event"] in ("window", "burst"):
+            say(f"phase 12b {e.get('name', 'burst')} {e['draws']} draws: "
+                f"{e['draws'] * C / e['wall_s']!r} draws/sec, "
+                f"{e['wall_s'] / e['draws'] * 1e3!r} ms/transition, HMC "
+                f"acceptance {e['hmc_accept']}")
+    burst_ms = [e["wall_s"] / e["draws"] * 1e3 for e in log
+                if e["event"] == "burst"]
+    say(f"phase 12b off-default driver over a {mesh} mesh: bursts "
+        f"{burst_ms} ms/transition against phase 9a's "
+        f"{'not run in this call' if phase9a_ms is None else phase9a_ms}"
+        f" on one process; each rank's whole run "
+        f"{[p['b_wall_s'] / transitions * 1e3 for p in p12]} "
+        f"ms/transition, of which in the driver's gathers through the host "
+        f"(draws to rank 0: gather_space; traces, pooling: gather_chains) "
+        f"{[{k: round(v, 3) for k, v in p['b_gathers'].items()} for p in p12]}"
+        f" s of {[round(p['b_wall_s'], 3) for p in p12]} s; u of the "
+        f"{windows} windows and bursts bitwise "
+        f"equal on the ranks of every space group: "
+        f"{not agree('b_digests')}; K1 launches per rank "
+        f"{[p['b_k1'] for p in p12]} in {transitions} transitions; "
+        f"acceptance over the {stored} stored draws {json.dumps(acc)}; "
+        f"rank 0's store {shape}")
+
+    # 12c
+    outs = [p["c"] for p in p12]
+    o = outs[0]
+    n, R = o["timed"], o["R"]
+    space = ranks // len(groups)
+    split = R % space == 0
+    if on_card and [x["launches"] for x in outs] != [n] * ranks:
+        problems.append(f"12c: K2 launches per rank "
+                        f"{[x['launches'] for x in outs]} in {n}")
+    calls = [x["band_calls"] for x in outs]
+    if not split or calls != [n] * ranks or (
+            [x["rows"] for x in outs] != [R // space] * ranks):
+        problems.append(f"12c: band products per rank {calls}, rows "
+                        f"{[x['rows'] for x in outs]} of {R}")
+    if not all(x["finite"] for x in outs):
+        problems.append("12c: non-finite logp")
+    if [c for c, g in groups.items()
+            if any(p["c"]["digest"] != g[0]["c"]["digest"] for p in g)]:
+        problems.append("12c: the ranks of a space group differ")
+    say(f"phase 12c MSOA off-default transition (R={R} block rows) over a "
+        f"{mesh} mesh: {n} timed transitions, {[x['ms'] for x in outs]} "
+        f"ms/transition per rank against phase 9b's "
+        f"{'not run in this call' if phase9b_ms is None else phase9b_ms} "
+        f"(M=7000, one process); K2 launches per rank "
+        f"{[x['launches'] for x in outs]}, band products {calls}, each over"
+        f" {o['rows']} block rows; acceptance on rank 0 "
+        f"{json.dumps(o['acc'])}")
+    if problems:
+        raise AssertionError("phase 12: " + "; ".join(problems))
+    say(f"phase 12 on {card or 'the CPU'}: every check held")
+    return sum(x["launches"] for x in outs)
 
 
 def main(argv):
@@ -2295,17 +2663,19 @@ def main(argv):
         _, _, store, fused_ms = phase_driver(
             torch, 6, model, state, uk_driver_config(TINY["T"]), UK_DRIVER,
             "fused_sweep")
-        rehearse_msoa(torch)
+        off_msoa_ms = rehearse_msoa(torch)
         covariates, init = synthetic_covariates(TINY["M"], TINY["T"])
         phase_posterior(torch, torch.device("cpu"), store, covariates, init)
-        phase_9a(torch, "cpu", **TINY)
+        off_ms = phase_9a(torch, "cpu", **TINY)
         phase_9c(torch, "cpu", **TINY)
         phase_10(torch, torch.device("cpu"), **TINY, plan=UK_DRIVER,
                  phase6_ms=fused_ms[0])
         phase_10d(torch, "cpu", **TINY)
         phase_11(torch, torch.device("cpu"), **TINY, plan=REHEARSE_DRIVER,
                  phase6_ms=fused_ms[0], msoa_M=256, fallback_M=384,
-                 msoa_T=30, msoa_timed=2, sparse=True)
+                 msoa_T=30, msoa_timed=2, sparse=True,
+                 off_plan=REHEARSE_DRIVER, phase9a_ms=off_ms[0],
+                 phase9b_ms=off_msoa_ms)
         return 3
 
     card = card_line()
@@ -2360,8 +2730,9 @@ def main(argv):
 
     off_ms = phase_9a(torch, "cuda", M, T, C, card)
     msoa, mstate, mgen = build_msoa(torch, "cuda", MSOA_M, MSOA_T)
-    k2_launches += phase_9b(torch, msoa, mstate, mgen, OFF_DEFAULT_TIMED,
-                            card)
+    k2_9b, off_msoa_ms = phase_9b(torch, msoa, mstate, mgen,
+                                  OFF_DEFAULT_TIMED, card)
+    k2_launches += k2_9b
     del msoa, mstate
     phase_9c(torch, "cuda", M, T, F64_CHAINS)
     mesh_launches, mesh_transitions, _ = phase_10(
@@ -2370,11 +2741,12 @@ def main(argv):
     uk_transitions += RANKS * mesh_transitions
     phase_10d(torch, "cuda", M, T, C, card)
     k1_space, k2_space, _, _ = phase_11(
-        torch, torch.device("cuda"), M, T, C, UK_DRIVER, fused_ms[0], card)
+        torch, torch.device("cuda"), M, T, C, UK_DRIVER, fused_ms[0], card,
+        phase9a_ms=off_ms[0], phase9b_ms=off_msoa_ms)
     k1_launches += k1_space
     uk_transitions += SPACE * (1 + mesh_transitions)
     k2_launches += k2_space
-    msoa_transitions += SPACE * (SPACE_TIMED + SPACE_FALLBACK)
+    msoa_transitions += SPACE * (2 * SPACE_TIMED + SPACE_FALLBACK)
 
     kernels = [
         dict(name="fused_sweep", route="cuda",

@@ -7,8 +7,8 @@ and out-of-range values fail fast with a pointed message.  The raw-dict
 interface is still accepted everywhere.  Why each default is what it is,
 with the measurements behind it, is in the JAX package's ``config.py``:
 those were taken with the JAX package, none with this port.  Every field
-runs but one combination: ``space_devices > 1`` in a run over several
-ranks, for which the driver raises ``NotImplementedError``.
+runs, alone and together, over one rank or several (chain and space
+axes alike).
 """
 
 from dataclasses import dataclass, fields
@@ -103,7 +103,7 @@ class McmcConfig:
     # With use_mesh: devices along the mesh's `space` axis — the location
     # axis of the event tensor / commuting matmul is sharded over it
     # (MSOA-scale model parallelism, SURVEY.md §2.8).  1 = chains only.
-    # Over several ranks, values > 1 are not ported: the driver raises.
+    # With one rank it does nothing.
     space_devices: int = 1
     # Convergence gating (SURVEY.md §5 "gated burst loop"): checked between
     # bursts on the scalar parameters; sampling stops early when every

@@ -19,7 +19,10 @@ batch, on each rank's own device, with a generator of the slice's own
 (:func:`rank_seed` of the chain rank).  With ``space_devices > 1`` the
 slice's ``space_devices`` ranks (its space group) hold its chains'
 events on their bands of locations and run each transition together
-(``parallel/sharding.py:SpaceBand``).  The chain slices meet only at
+(``parallel/sharding.py:SpaceBand``), with every event kernel: the
+sweep, the gamma0-compensated moves and the gamma refresh run on the
+gathered events, the same on every rank of the group, so the sums over
+locations that they read are whole there.  The chain slices meet only at
 window and burst boundaries, where the driver waits for the host anyway:
 they pool the step size and mass over all chains, tune the move decays on
 the acceptance of all chains, run the convergence gate on the draws of
@@ -109,10 +112,7 @@ def check_ported(config, world=1, num_chains=1):
     must be a multiple of ``world / space_devices`` (``ValueError``; the
     location count must be a multiple of ``space_devices`` too, which
     ``run_mcmc`` checks).  ``space_devices > 1`` runs the location axis
-    sharded, but with ``compensate_gamma0``, ``pair_compensate_gamma0`` or
-    ``gamma_gibbs`` it raises ``NotImplementedError``: these read location
-    sums of their own (the person-time potential, the refresh's Newton
-    terms), which the space axis does not port yet."""
+    sharded with every event kernel, the off-default ones included."""
     if world == 1:
         return
     if not config.use_mesh:
@@ -128,14 +128,6 @@ def check_ported(config, world=1, num_chains=1):
         raise ValueError(
             f"num_chains={num_chains} must be a multiple of the chain-axis "
             f"device count {chain_dev} when use_mesh is set")
-    off_default = [name for name in ("compensate_gamma0",
-                                     "pair_compensate_gamma0", "gamma_gibbs")
-                   if getattr(config, name)]
-    if space > 1 and off_default:
-        raise NotImplementedError(
-            f"space_devices > 1 with {', '.join(off_default)} is not "
-            "ported: the off-default event kernels over a space axis come "
-            "in a later slice (ROADMAP.md §1)")
 
 
 def rank_seed(seed, rank, world):

@@ -375,9 +375,13 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
     the log-prior and the Jacobian added once (on the group's first rank),
     each value+grad pass summed over the group; then the event sweep on
     the gathered events (their state recomputed) and the whole commute,
-    the same on every rank, each keeping its band.  The options that read location sums of their own
-    (the gamma0-compensated moves, the gamma refresh) raise.  The step
-    carries ``space`` as its attribute.
+    the same on every rank, each keeping its band.  The sums over
+    locations that the off-default kernels read (the compensated moves'
+    person-time potential and I->R delta, the gamma refresh's daily
+    removals and infectious counts) are then taken over all M on every
+    rank, with no collective of their own, and every rank of the group
+    ends the transition with the same u.  The step carries ``space`` as
+    its attribute.
     """
     T = model.num_steps
     M = model.data.num_locations
@@ -387,10 +391,6 @@ def make_mcmc_step(model, num_leapfrog_steps: int,
             f"t_range={cfg.t_range} must satisfy 0 <= lo < hi <= T={T}"
         )
     compensated = moves_gamma0(cfg)
-    if space is not None and (compensated or cfg.gamma_gibbs):
-        raise NotImplementedError(
-            "the gamma0-compensated moves and the gamma refresh over a "
-            "space axis are not ported (ROADMAP.md §1)")
     sweep_cfg = sweep_config(cfg) if cfg.fused_sweep else None
     rows = slice(None) if space is None else space.rows
     initial_state = model.initial_state[rows]

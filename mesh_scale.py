@@ -15,7 +15,9 @@ phase 10.  With ``--space``, its phase 11 over 4 ranks as the meshes 1 x 4
 and 2 x 2 (chain x space): the space-sharded UK step against one
 process's, ``run_mcmc`` with ``space_devices`` on phase 6's plan, and the
 MSOA transition at M=7168 with K2 on each rank's band of block rows
-against one process's, with every check of phase 11.  The last line
+against one process's, with every check of phase 11; the same ranks then
+run phase 12, the off-default event kernels over the space axis, with
+every check of phase 12.  The last line
 compares the ms per transition of each configuration with one process's.
 Any failure exits non-zero.
 """

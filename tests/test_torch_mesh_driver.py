@@ -3,7 +3,7 @@ on one process ``use_mesh`` and ``space_devices`` change nothing (the JAX
 driver's rule); over two gloo ranks each rank's chains equal a
 one-process run seeded with ``rank_seed``, pooled adaptation, the decays
 and the gate agree across ranks, a resumed run equals the uninterrupted
-one, and the space axis with an off-default event kernel raises.  The
+one, and a bad split raises on every rank.  The
 two-rank runs come from one spawn (``tests/torch_ranks.py``, scenario
 ``driver``); the space axis's own runs are in
 ``tests/test_torch_space_driver.py``."""
@@ -140,10 +140,15 @@ def test_interrupted_two_rank_run_resumes_bitwise(ranks):
 
 
 def test_space_axis_and_bad_splits_raise_over_two_ranks(ranks):
-    """``space_devices=2`` with the gamma refresh (the off-default kernels
-    are not ported over a space axis), 3 chains over 2 ranks and a run
-    over ranks without ``use_mesh`` raise on every rank."""
+    """``space_devices=2`` with the gamma refresh on the NI data's 11
+    locations (not a multiple of 2), 3 chains over 2 ranks and a run over
+    ranks without ``use_mesh`` raise ``ValueError`` on every rank, each
+    for its own split."""
     for r in range(2):
         refused = json.loads((ranks / f"e_{r}.json").read_text())
-        assert refused == {"space": "NotImplementedError",
-                           "chains": "ValueError", "no_mesh": "ValueError"}
+        assert {k: v[0] for k, v in refused.items()} == {
+            "space": "ValueError", "chains": "ValueError",
+            "no_mesh": "ValueError"}
+        assert "multiple of space_devices=2" in refused["space"][1]
+        assert "num_chains=3" in refused["chains"][1]
+        assert "use_mesh" in refused["no_mesh"][1]

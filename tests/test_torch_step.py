@@ -266,8 +266,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_chip_smoke_rehearsal_on_cpu():
     """The chip smoke script's CPU rehearsal runs the slices, the driver
-    phases, the posterior verbs and the two-rank phases at a tiny size
-    and, having no card, exits non-zero without a result line."""
+    phases, the posterior verbs and the two-rank phases (the space axis
+    with the off-default kernels among them) at a tiny size and, having
+    no card, exits non-zero without a result line."""
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse"],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
@@ -290,5 +291,13 @@ def test_chip_smoke_rehearsal_on_cpu():
                  "phase 11b driver over a 1 x 2", "phase 11c MSOA M=256",
                  "not a multiple of 2): the operator stays whole",
                  "phase 11 on the CPU"):
+        assert line in out.stdout, line
+    # phase 12, the off-default kernels over the space axis, on the same
+    # two CPU ranks
+    for line in ("phase 12a off-default transition over a 1 x 2",
+                 "bitwise equal on the ranks of every space group: True",
+                 "phase 12b off-default driver over a 1 x 2",
+                 "phase 12c MSOA off-default transition",
+                 "phase 12 on the CPU: every check held"):
         assert line in out.stdout, line
     assert '"ok"' not in out.stdout

@@ -7,9 +7,10 @@ scenario and writes what it found into ``<dir>`` for the calling test to
 check.  ``parallel`` runs the sharded step on a replayed ``StepNoise``,
 pooled adaptation and the gate statistics over gathered chains, and the
 meshes; ``driver`` runs ``mcmc`` over the ranks on the NI data;
-``space`` runs the sharded step and ``mcmc`` with the location axis
-sharded over the two ranks (``space_devices=2``) on the data files that
-the calling test wrote into ``<dir>``.
+``space`` runs the sharded step, with the default event kernels and
+with the off-default ones (the refresh's inputs recorded), and ``mcmc``
+with the location axis sharded over the two ranks (``space_devices=2``)
+on the data files that the calling test wrote into ``<dir>``.
 """
 
 import json
@@ -37,6 +38,39 @@ def _step_config():
                              t_range=(STEP_T - 6, STEP_T),
                              num_pair_updates=0, fused_sweep="always",
                              occult_guided=True)
+
+
+# the off-default event kernels: the unfused sweep with the compensated
+# E->I move, the compensated pair move and the gamma refresh
+OFF_DEFAULT = dict(fused_sweep="never", compensate_gamma0=True,
+                   pair_compensate_gamma0=True, num_pair_updates=1,
+                   gamma_gibbs=True)
+OFF_DEFAULT_SEED = 7  # the off-default step's generator, alike on all ranks
+
+
+def off_default_step_config():
+    return _step_config()._replace(**OFF_DEFAULT)
+
+
+def record_refresh(calls):
+    """Wraps the transition's gamma refresh (``gibbs.gamma_gibbs_step``)
+    so that each call appends its inputs, its draws and its output
+    ``(g, K_t, N_t, wd, noise, g_new)`` to ``calls``; returns the
+    original."""
+    from covid19uk_tpu_torch.inference import gamma_gibbs, gibbs
+
+    original = gibbs.gamma_gibbs_step
+
+    def wrapped(generator, g, k_t, n_t, wd, noise=None):
+        g = g.clone()  # a view of the u that the step writes g_new into
+        if noise is None:
+            noise = gamma_gibbs.draw_noise(generator, g)
+        g_new, info = original(generator, g, k_t, n_t, wd, noise=noise)
+        calls.append((g, k_t, n_t, wd, noise, g_new))
+        return g_new, info
+
+    gibbs.gamma_gibbs_step = wrapped
+    return original
 
 
 def spawn(scenario, tmp, world=2, device="cpu", timeout=120):
@@ -243,7 +277,7 @@ def _driver(tmp, rank, device):
     driver.make_fixed_runner = make_fixed
     driver.mcmc(NI_DATA, path("d.h5"), ck, device=device)
 
-    # (e) options that a run over several ranks refuses
+    # (e) splits that a run over several ranks refuses: (type, message)
     refused = {}
     for name, cfg in (("space", driver_config(space_devices=2,
                                               gamma_gibbs=True)),
@@ -253,7 +287,7 @@ def _driver(tmp, rank, device):
             driver.mcmc(NI_DATA, path(f"e_{name}.h5"), cfg, device=device)
             refused[name] = None
         except (NotImplementedError, ValueError) as e:
-            refused[name] = type(e).__name__
+            refused[name] = (type(e).__name__, str(e))
     with open(path(f"e_{rank}.json"), "w") as f:
         json.dump(refused, f)
 
@@ -296,7 +330,7 @@ def record_u(driver, sums):
 
 
 def _space(tmp, rank, device):
-    from covid19uk_tpu_torch.inference import driver
+    from covid19uk_tpu_torch.inference import driver, gibbs
     from covid19uk_tpu_torch.inference.gibbs import make_mcmc_step
     from covid19uk_tpu_torch.ops import block_sparse
     from covid19uk_tpu_torch.parallel.mesh import chain_space_mesh
@@ -317,14 +351,33 @@ def _space(tmp, rank, device):
            "band": new.events.numpy(),
            "accepted": trace.hmc.is_accepted.numpy()}
 
-    # the driver, dense (with debug_nans: the ranks agree on each check)
-    # and block-sparse
+    # the step with the off-default kernels, generators seeded alike
+    calls = []
+    original = record_refresh(calls)
+    step = make_sharded_step(make_mcmc_step(
+        model, 3, off_default_step_config(), band), mesh, shard_space=True)
+    new, trace = step(shard_chain_state(state, mesh, True),
+                      shard_tunables(tune, mesh),
+                      torch.Generator().manual_seed(OFF_DEFAULT_SEED),
+                      noise._replace(tbl=None, ttbl=None))
+    gibbs.gamma_gibbs_step = original
+    (g, k_t, n_t, wd, gnoise, g_new), = calls
+    out.update(off_u=new.u.numpy(), off_band=new.events.numpy(),
+               off_events=gather_space(new.events, mesh, 1).numpy(),
+               off_g=g.numpy(), off_k=k_t.numpy(), off_n=n_t.numpy(),
+               off_wd=wd.numpy(), off_g_new=g_new.numpy(),
+               **{f"off_noise_{k}": v.numpy()
+                  for k, v in gnoise._asdict().items()})
+
+    # the driver, dense (with debug_nans: the ranks agree on each check),
+    # block-sparse, and dense with the off-default kernels
     for name, kw in (("dense", dict(debug_nans=True)),
-                     ("sparse", dict(sparse="always"))):
+                     ("sparse", dict(sparse="always")),
+                     ("off_default", dict(debug_nans=True, **OFF_DEFAULT))):
         sums = []
         originals = record_u(driver, sums)
         calls = block_sparse.bsr_band_matmul.calls
-        M = 4 if name == "dense" else 256
+        M = 256 if name == "sparse" else 4
         driver.mcmc(os.path.join(tmp, f"data{M}.h5"),
                     os.path.join(tmp, f"{name}.h5"), space_config(
                         M, use_mesh=True, space_devices=2, **kw),

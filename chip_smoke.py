@@ -2,7 +2,7 @@
 """Runs the PyTorch/CUDA port (covid19uk_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py             # on a machine with a card
-    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-12; exits 3
+    python3 chip_smoke.py --rehearse  # tiny CPU run of phases 3, 5-13; exits 3
 
 Phases, one short line each:
   0. watchdog (a hang ends in a traceback and a non-zero exit) and card;
@@ -138,10 +138,23 @@ Phases, one short line each:
      options, one chain, 2 untimed + 3 timed: one K2 launch a transition
      on each rank over its 28 block rows, both ranks bitwise equal,
      ms/transition beside phase 9b's.
-Then the kernels' JSON line (launches: K1 phase 6's, phase 10c's and
-phase 11a-b's on every rank, K2 phases 7, 9b, 11c and 12c's on both
-ranks; phase 8 launches neither kernel, phases 9a and 12a-b must not
-launch K1) and, last, the result line.  Any failure exits non-zero, as
+ 13. the ESS/sec entry points: (a) bench_torch.py's run_benchmark on its
+     synthetic full-UK build (M=380, T=120, 64 overdispersed chains,
+     fused sweep) with 50 warm draws (per-chain adaptation), an untimed
+     and 2 timed segments of 100: bench.py's JSON keys, finite positive
+     min-ESS/sec and per-scalar ESS, HMC acceptance of the last segment
+     in (0, 1], one K1 launch per transition (250 + 100), no K2 launch;
+     (b) the same on build_real, the tracked UK data read without h5py,
+     8 chains, 50 warm, an untimed and 1 timed segment of 100; (c)
+     bench_mixing_torch.py at NI scale (M=11, T=32, 16 chains) with the
+     compensated moves and the gamma refresh, 10 warm and 2 x 30 draws:
+     six finite positive ESS, acceptances in [0, 1] (refresh and HMC
+     above 0), no kernel launch (the unfused sweep).  Each prints its
+     result line, ms/transition and launches.
+Then the kernels' JSON line (launches: K1 phase 6's, phase 10c's,
+phase 11a-b's on every rank and phase 13a-b's, K2 phases 7, 9b, 11c and
+12c's on both ranks; phase 8 launches neither kernel, phases 9a, 12a-b
+and 13c must not launch K1) and, last, the result line.  Any failure exits non-zero, as
 does a run without a CUDA device.
 """
 
@@ -1862,6 +1875,24 @@ OFF_SPACE_SEED = 12  # 12a's sweep generators: chain slice k seeded 12 + k
 OFF_RESULTS = ("gamma", "move/E->I_compensated", "move/S->E+E->I_pair")
 
 
+# phase 13: bench_torch.py's run at full UK width with fewer draws (13a),
+# its real-data build (13b), bench_mixing_torch.py at NI scale (13c)
+BENCH_UK = dict(warm_draws=50, n_draws=100, n_seeds=2)
+BENCH_REAL_CHAINS = 8
+BENCH_REAL = dict(warm_draws=50, n_draws=100, n_seeds=1)
+MIXING_FLAGS = ["--scale", "ni", "--gamma-gibbs", "--pair-comp",
+                "--warm", "10", "--draws", "30"]
+# bench.py's result keys, in its order
+BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "sd", "seeds",
+              "chains", "runs", "ess_diag_not_mixing"]
+# --rehearse: the synthetic run tiny; the real data keep their M=380,
+# T=120 on 2 chains and a few transitions
+REHEARSE_BENCH = (dict(M=8, T=24, C=2),
+                  dict(warm_draws=4, n_draws=6, n_seeds=2))
+REHEARSE_REAL = (2, dict(warm_draws=20, n_draws=4, n_seeds=1))
+REHEARSE_MIXING = ["--chains", "2", "--warm", "4", "--draws", "8"]
+
+
 def digest(*tensors):
     """The sha256 of the tensors' bytes in order: equal digests are
     bitwise equal tensors."""
@@ -2634,6 +2665,110 @@ def phase_12(reports, one, f32_err, M, T, C, plan, mesh, on_card,
     return sum(x["launches"] for x in outs)
 
 
+def check_bench(result, stats, chains, n_seeds, on_card, launches):
+    """The problems of a bench_torch.run_benchmark result: bench.py's
+    keys, finite positive value and per-scalar ESS, the counts, HMC
+    acceptance in (0, 1], and on the card one K1 launch a transition and
+    no K2 launch."""
+    problems = []
+    if list(result) != BENCH_KEYS:
+        problems.append(f"keys {list(result)} are not bench.py's")
+    ess = result["ess_diag_not_mixing"]
+    if not all(np.isfinite(v) and v > 0 for v in
+               [result["value"], *result["runs"], *ess.values()]):
+        problems.append("value, runs or ESS not finite and positive")
+    if not np.isfinite(result["sd"]):
+        problems.append("sd not finite")
+    if (result["chains"], result["seeds"], len(result["runs"])) != (
+            chains, n_seeds, n_seeds):
+        problems.append("chains, seeds or runs do not match the run")
+    if not 0.0 < stats["hmc_accept"] <= 1.0:
+        problems.append(f"HMC acceptance {stats['hmc_accept']}")
+    if on_card and (launches["fused_sweep"] != stats["transitions"]
+                    or launches["bsr_matmul"] != 0):
+        problems.append(f"launches {launches} in {stats['transitions']} "
+                        f"transitions")
+    return problems
+
+
+def phase_13(torch, dev, card="", rehearse=False):
+    """Phase 13: the ESS/sec entry points.  13a: bench_torch.py's
+    ``run_benchmark`` on its synthetic full-UK build (M=380, T=120, C=64,
+    fused sweep) with ``BENCH_UK``'s draws; 13b: the same on
+    ``build_real`` (the tracked UK data through the plain HDF5 reader,
+    ``BENCH_REAL_CHAINS`` chains); 13c: bench_mixing_torch.py at NI scale
+    with the compensated pair move and the gamma refresh (unfused sweep:
+    no K1 or K2 launch).  Checks as :func:`check_bench`, and 13c's six
+    ESS finite and positive, its acceptances in [0, 1] with the refresh's
+    and HMC's above 0.  Each prints its numbers.  Returns (K1 launches and
+    UK transitions of 13a-b)."""
+    import bench_mixing_torch
+    import bench_torch
+
+    on_card = dev.type == "cuda"
+    problems = []
+    k1 = transitions = 0
+    shape, draws = (dict(M=M, T=T, C=C), BENCH_UK) if not rehearse \
+        else REHEARSE_BENCH
+    real_chains, real_draws = (BENCH_REAL_CHAINS, BENCH_REAL) \
+        if not rehearse else REHEARSE_REAL
+    runs = [
+        ("13a", "synthetic UK", "ess_per_sec_fulluk", shape["C"], draws,
+         lambda: bench_torch.build(shape["C"], M=shape["M"], T=shape["T"],
+                                   device=dev)),
+        ("13b", "real UK data", "ess_per_sec_fulluk_real", real_chains,
+         real_draws, lambda: bench_torch.build_real(real_chains,
+                                                    device=dev)),
+    ]
+    for part, what, metric, chains, plan, make in runs:
+        t0 = time.perf_counter()
+        built = make()
+        stats = {}
+        reset_launches()
+        result = bench_torch.run_benchmark(*built, metric=metric,
+                                           stats=stats, **plan)
+        launches = read_launches()
+        del built
+        found = check_bench(result, stats, chains, plan["n_seeds"], on_card,
+                            launches)
+        problems += [f"{part}: {p}" for p in found]
+        k1 += launches["fused_sweep"]
+        transitions += stats["transitions"]
+        ms = [round(w / plan["n_draws"] * 1e3, 2) for w in stats["walls"]]
+        say(f"phase {part} bench_torch {what} on {card or 'the CPU'}: "
+            f"{json.dumps(result)}; {stats['transitions']} transitions "
+            f"({plan['warm_draws']} warm, {1 + plan['n_seeds']} x "
+            f"{plan['n_draws']}), launches {json.dumps(launches)}, HMC "
+            f"acceptance {stats['hmc_accept']:.4f}, timed ms/transition "
+            f"{ms} ({time.perf_counter() - t0:.1f} s)")
+
+    t0 = time.perf_counter()
+    flags = MIXING_FLAGS + (REHEARSE_MIXING if rehearse else [])
+    args = bench_mixing_torch.parser().parse_args(
+        flags + ["--device", dev.type])
+    reset_launches()
+    ess, acc, wall = bench_mixing_torch.run(args)
+    launches = read_launches()
+    if not all(np.isfinite(v) and v > 0 for v in ess.values()):
+        problems.append(f"13c: ESS {ess}")
+    if not (all(0.0 <= v <= 1.0 for v in acc.values())
+            and acc["gamma"] > 0 and acc["hmc"] > 0):
+        problems.append(f"13c: acceptance {acc}")
+    if any(launches.values()):
+        problems.append(f"13c: launches {launches} (unfused sweep at NI)")
+    say(f"phase 13c bench_mixing_torch {' '.join(flags)} on "
+        f"{card or 'the CPU'}: ESS "
+        f"{json.dumps({k: round(v, 1) for k, v in ess.items()})}, acc "
+        f"{json.dumps({k: round(v, 3) for k, v in acc.items()})}, "
+        f"{args.chains} chains x {args.draws} draws in {wall:.2f} s, "
+        f"min-ESS/sec {min(ess.values()) / wall:.3f}, launches "
+        f"{json.dumps(launches)} ({time.perf_counter() - t0:.1f} s)")
+    if problems:
+        raise AssertionError("phase 13: " + "; ".join(problems))
+    say(f"phase 13 on {card or 'the CPU'}: every check held")
+    return k1, transitions
+
+
 def main(argv):
     if argv[:1] == ["--rank-worker"]:
         return rank_worker(argv[1:])
@@ -2676,6 +2811,7 @@ def main(argv):
                  msoa_T=30, msoa_timed=2, sparse=True,
                  off_plan=REHEARSE_DRIVER, phase9a_ms=off_ms[0],
                  phase9b_ms=off_msoa_ms)
+        phase_13(torch, torch.device("cpu"), rehearse=True)
         return 3
 
     card = card_line()
@@ -2747,6 +2883,9 @@ def main(argv):
     uk_transitions += SPACE * (1 + mesh_transitions)
     k2_launches += k2_space
     msoa_transitions += SPACE * (2 * SPACE_TIMED + SPACE_FALLBACK)
+    k1_bench, bench_transitions = phase_13(torch, torch.device("cuda"), card)
+    k1_launches += k1_bench
+    uk_transitions += bench_transitions
 
     kernels = [
         dict(name="fused_sweep", route="cuda",

@@ -143,47 +143,65 @@ def _scale_is_phony(item):
 
 def load_group(path, group_name) -> Group:
     """Reads a Group from netCDF4-profile files (written here or by
-    netCDF4/xarray) and from round-1 legacy files (``_coord_`` prefix)."""
-    import h5py
+    netCDF4/xarray) and from round-1 legacy files (``_coord_`` prefix).
+    Reads through h5py where it is installed, else through
+    :func:`hdf5_plain.read_group` (the part of HDF5 these files use)."""
+    try:
+        import h5py
+    except ImportError:
+        from covid19uk_tpu_torch.utils import hdf5_plain
 
-    out = Group()
+        return _group(*hdf5_plain.read_group(path, group_name))
+
     with h5py.File(path, "r") as f:
         g = f[group_name]
-        out.attrs = {
-            k: v for k, v in g.attrs.items() if not k.startswith("_NC")
-        }
-        scale_names = {}  # h5 object id -> dim name
-        for name, item in g.items():
-            if isinstance(item, h5py.Dataset) and _is_dimension_scale(item):
-                scale_names[item.id] = name
+        datasets = [_H5Dataset(name, item) for name, item in g.items()
+                    if isinstance(item, h5py.Dataset)]
+        return _group(g.attrs, datasets)
 
-        for name, item in g.items():
-            if not isinstance(item, h5py.Dataset):
-                continue
-            if name.startswith(_LEGACY_COORD_PREFIX):  # round-1 files
-                out.coords[name[len(_LEGACY_COORD_PREFIX):]] = _decode(
-                    item[()]
-                )
-                continue
-            if item.id in scale_names:
-                if not _scale_is_phony(item):
-                    out.coords[name] = _decode(item[()])
-                continue
-            out.variables[name] = _decode(item[()])
-            if "DIMENSION_LIST" in item.attrs:
-                dims = []
-                for axis in range(len(item.dims)):
-                    entries = [
-                        scale_names.get(s.id, f"dim_{axis}")
-                        for _, s in item.dims[axis].items()
-                    ]
-                    dims.append(entries[0] if entries else f"dim_{axis}")
-                out.dims[name] = tuple(dims)
-            elif "dims" in item.attrs:  # round-1 legacy attr
-                dims_attr = item.attrs["dims"]
-                if isinstance(dims_attr, bytes):
-                    dims_attr = dims_attr.decode()
-                out.dims[name] = tuple(dims_attr.split(","))
+
+class _H5Dataset:
+    """An h5py dataset as :func:`_group` reads it: ``hdf5_plain.Dataset``'s
+    ``name``, ``key``, ``attrs``, ``dim_keys`` and ``read``."""
+
+    def __init__(self, name, item):
+        self.name, self.key, self.attrs, self._item = (
+            name, item.id, item.attrs, item)
+        self.dim_keys = None
+        if "DIMENSION_LIST" in item.attrs:
+            self.dim_keys = [[s.id for _, s in item.dims[axis].items()]
+                             for axis in range(len(item.dims))]
+
+    def read(self):
+        return self._item[()]
+
+
+def _group(attrs, datasets) -> Group:
+    out = Group()
+    out.attrs = {k: v for k, v in attrs.items() if not k.startswith("_NC")}
+    scale_names = {d.key: d.name for d in datasets
+                   if _is_dimension_scale(d)}
+    for d in datasets:
+        name = d.name
+        if name.startswith(_LEGACY_COORD_PREFIX):  # round-1 files
+            out.coords[name[len(_LEGACY_COORD_PREFIX):]] = _decode(d.read())
+            continue
+        if d.key in scale_names:
+            if not _scale_is_phony(d):
+                out.coords[name] = _decode(d.read())
+            continue
+        out.variables[name] = _decode(d.read())
+        if d.dim_keys is not None:
+            out.dims[name] = tuple(
+                scale_names.get(keys[0], f"dim_{axis}") if keys
+                else f"dim_{axis}"
+                for axis, keys in enumerate(d.dim_keys)
+            )
+        elif "dims" in d.attrs:  # round-1 legacy attr
+            dims_attr = d.attrs["dims"]
+            if isinstance(dims_attr, bytes):
+                dims_attr = dims_attr.decode()
+            out.dims[name] = tuple(dims_attr.split(","))
     return out
 
 

@@ -249,6 +249,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "import covid19uk_tpu_torch.data.assemble\n"
         "import covid19uk_tpu_torch.data.tiers\n"
         "import covid19uk_tpu_torch.data.util\n"
+        "import covid19uk_tpu_torch.utils.hdf5_plain\n"
+        "import bench_torch\n"
+        "import bench_mixing_torch\n"
         "from covid19uk_tpu_torch.utils.synthetic import "
         "build_synthetic_model\n"
         "m = build_synthetic_model(150, 8, sparse=True, device='cpu')\n"
@@ -266,9 +269,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 def test_chip_smoke_rehearsal_on_cpu():
     """The chip smoke script's CPU rehearsal runs the slices, the driver
-    phases, the posterior verbs and the two-rank phases (the space axis
-    with the off-default kernels among them) at a tiny size and, having
-    no card, exits non-zero without a result line."""
+    phases, the posterior verbs, the two-rank phases (the space axis
+    with the off-default kernels among them) and the ESS/sec entry points
+    at a tiny size and, having no card, exits non-zero without a result
+    line."""
     out = subprocess.run(
         [sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rehearse"],
         capture_output=True, text=True, cwd=ROOT, timeout=300,
@@ -299,5 +303,13 @@ def test_chip_smoke_rehearsal_on_cpu():
                  "phase 12b off-default driver over a 1 x 2",
                  "phase 12c MSOA off-default transition",
                  "phase 12 on the CPU: every check held"):
+        assert line in out.stdout, line
+    # phase 13, the ESS/sec entry points (bench_torch, bench_mixing_torch)
+    for line in ("phase 13a bench_torch synthetic UK on the CPU: "
+                 '{"metric": "ess_per_sec_fulluk"',
+                 "phase 13b bench_torch real UK data on the CPU: "
+                 '{"metric": "ess_per_sec_fulluk_real"',
+                 "phase 13c bench_mixing_torch",
+                 "phase 13 on the CPU: every check held"):
         assert line in out.stdout, line
     assert '"ok"' not in out.stdout
